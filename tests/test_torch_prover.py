@@ -1,0 +1,228 @@
+"""The port's prover (zksnap_tpu_torch.prover) against the JAX package.
+
+On the frozen K=7 circuit of scripts/gen_protocol_vectors.py, on the CPU:
+the port's dev SRS is the JAX package's (the frozen sha256 of the JAX
+cache file's arrays, and `srs_from_numpy` of them); its keygen gives the
+frozen vk digest; its verifier accepts the frozen JAX proof; a seeded
+port proof is byte-identical to the frozen seeded JAX proof
+(tests/vectors/torch_port_v1.json); the JAX verifier accepts the port's
+proof and rejects tampered, truncated and wrong-instance ones.  One
+keygen and one proof serve the module.  The voter circuit at k=13 is
+marked slow.  Tolerance: none -- bytes and integers.
+"""
+
+import dataclasses
+import hashlib
+import json
+import os
+import random
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from zksnap_tpu.curves.jacobian import JacPoint as JJacPoint
+from zksnap_tpu.curves.native import BN254_G1 as J_BN254
+from zksnap_tpu.curves.native import AffinePoint as JAffine
+from zksnap_tpu.prover import pairing as jpairing
+from zksnap_tpu.prover import plonk as jplonk
+from zksnap_tpu.prover import srs as jsrs
+from zksnap_tpu.prover.keygen import Layout as JLayout
+from zksnap_tpu_torch.prover import plonk
+from zksnap_tpu_torch.prover.convert import pk_from_numpy, srs_from_numpy
+from zksnap_tpu_torch.prover.srs import gen_srs, srs_cache_path
+
+torch.set_num_threads(1)
+
+VECTORS = os.path.join(os.path.dirname(__file__), "vectors")
+ARRAYS = ("x", "y", "z", "lx", "ly", "lz")
+
+
+def _vectors(name):
+    with open(os.path.join(VECTORS, name)) as f:
+        return json.load(f)
+
+
+@pytest.fixture(scope="module")
+def port(tmp_path_factory):
+    """The port's SRS (made here, in a fresh directory), keygen of the
+    frozen circuit and one proof seeded as the frozen JAX proof."""
+    cache = str(tmp_path_factory.mktemp("srs"))
+    srs = gen_srs(7, cache_dir=cache)
+    pk = plonk.keygen(chip_smoke.build_fixed_circuit(), 7, srs)
+    v = _vectors("torch_port_v1.json")["seeded_proof_k7"]
+    inst = [int(x) for x in v["instances"]]
+    proof = plonk.prove(pk, inst, random.Random(v["rng_seed"]))
+    return dict(cache=cache, srs=srs, pk=pk, inst=inst, proof=proof,
+                frozen=v)
+
+
+def _jax_affine(pt):
+    if pt.is_identity():
+        return JAffine.identity(J_BN254)
+    return JAffine(J_BN254, pt.x, pt.y)
+
+
+@pytest.fixture(scope="module")
+def jax_verifier(port):
+    """The JAX verifier over the port's vk and SRS: the JAX `verify`
+    looks its SRS up by k (for the instance commitment), so that lookup
+    returns the port's points -- the same arrays, as test_srs_matches_jax
+    shows -- instead of running the JAX SRS generation."""
+    srs, vk = port["srs"], port["pk"].vk
+    fields = {f.name: getattr(vk, f.name)
+              for f in dataclasses.fields(jplonk.VerifyingKey)}
+    fields["commitments"] = {k: _jax_affine(p)
+                             for k, p in vk.commitments.items()}
+    jvk = jplonk.VerifyingKey(**fields)
+    tau = jsrs._tau_from_seed(b"dev")
+    g2, tau_g2 = jpairing.G2_GEN, jpairing.g2_mul(jpairing.G2_GEN, tau)
+
+    def pts(a):
+        return jnp.asarray(a.numpy().astype(np.uint32))
+
+    jsrs_obj = jsrs.SRS(7, JJacPoint(*(pts(t) for t in (srs.g1.x, srs.g1.y,
+                                                          srs.g1.z))),
+                        JJacPoint(*(pts(t) for t in (
+                            srs.g1_lagrange.x, srs.g1_lagrange.y,
+                            srs.g1_lagrange.z))), tau_g2, g2)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jplonk, "gen_srs", lambda k, seed=b"dev": jsrs_obj)
+
+        def verify(inst, proof):
+            return jplonk.verify(jvk, g2, tau_g2, inst, proof)
+
+        yield verify
+
+
+def test_srs_matches_jax(port):
+    """The six arrays the port caches are the JAX package's, bit for bit
+    (sha256 of the JAX cache file, frozen), and `srs_from_numpy` of them
+    is the port's SRS."""
+    v = _vectors("torch_port_v1.json")["srs_k7"]
+    d = np.load(srs_cache_path(7, b"dev", port["cache"]))
+    h = hashlib.sha256()
+    for name in ARRAYS:
+        assert d[name].dtype == np.uint32 and d[name].shape == (128, 16)
+        h.update(np.ascontiguousarray(d[name]).tobytes())
+    assert h.hexdigest() == v["sha256"]
+    srs = port["srs"]
+    again = srs_from_numpy({k: d[k] for k in ARRAYS}, srs.tau_g2, srs.g2)
+    for a, b in ((again.g1, srs.g1), (again.g1_lagrange, srs.g1_lagrange)):
+        for u, w in ((a.x, b.x), (a.y, b.y), (a.z, b.z)):
+            assert torch.equal(u, w)
+    assert (again.tau_g2, again.g2) == (srs.tau_g2, srs.g2)
+    # G2 points of the JAX package's own type convert too
+    tau = jsrs._tau_from_seed(b"dev")
+    j_tau_g2 = jpairing.g2_mul(jpairing.G2_GEN, tau)
+    from_jax = srs_from_numpy({k: d[k] for k in ARRAYS}, j_tau_g2,
+                              jpairing.G2_GEN)
+    assert (from_jax.tau_g2, from_jax.g2) == (srs.tau_g2, srs.g2)
+
+
+def test_vk_digest_frozen(port):
+    v = _vectors("transcript_v1.json")["proof_k7"]
+    vk = port["pk"].vk
+    for key, want in v["vk_shape"].items():
+        assert getattr(vk, key) == want, key
+    assert chip_smoke.vk_digest(vk) == v["vk_sha256"]
+    assert port["frozen"]["vk_sha256"] == v["vk_sha256"]
+
+
+def test_frozen_proof_verifies(port):
+    v = _vectors("transcript_v1.json")["proof_k7"]
+    srs, vk = port["srs"], port["pk"].vk
+    proof = bytes.fromhex(v["proof_hex"])
+    inst = [int(x) for x in v["instances"]]
+    assert plonk.verify(vk, srs.g2, srs.tau_g2, inst, proof)
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    assert not plonk.verify(vk, srs.g2, srs.tau_g2, inst, bytes(bad))
+
+
+def test_seeded_proof_matches_frozen_jax_proof(port):
+    assert port["proof"].hex() == port["frozen"]["proof_hex"]
+
+
+def test_jax_verifier_accepts_port_proof(port, jax_verifier):
+    proof, inst = port["proof"], port["inst"]
+    assert jax_verifier(inst, proof)
+    srs, vk = port["srs"], port["pk"].vk
+    assert plonk.verify(vk, srs.g2, srs.tau_g2, inst, proof)
+
+
+@pytest.mark.parametrize("how", ["flipped", "truncated", "extended",
+                                 "wrong_instance"])
+def test_bad_proofs_rejected(port, jax_verifier, how):
+    proof, inst = port["proof"], port["inst"]
+    if how == "flipped":
+        bad = bytearray(proof)
+        bad[100] ^= 0x10
+        proof = bytes(bad)
+    elif how == "truncated":
+        proof = proof[:-32]
+    elif how == "extended":
+        proof = proof + bytes(32)
+    else:
+        inst = [inst[0] + 1]
+    srs, vk = port["srs"], port["pk"].vk
+    assert not jax_verifier(inst, proof)
+    assert not plonk.verify(vk, srs.g2, srs.tau_g2, inst, proof)
+
+
+def test_pk_from_numpy_round_trip(port):
+    """A key carried across as a JAX `ProvingKey` carries it: fixed
+    coefficients as the JAX package keeps them at rest (uint16 limbs),
+    its host `Layout` and its `VerifyingKey` with the JAX package's
+    points.  The result equals the key it came from."""
+    pk = port["pk"]
+    coeffs = {k: v.numpy().astype(np.uint16)
+              for k, v in pk.fixed_coeffs.items()}
+    jlayout = JLayout(**{f.name: getattr(pk.layout, f.name)
+                         for f in dataclasses.fields(JLayout)})
+    fields = {f.name: getattr(pk.vk, f.name)
+              for f in dataclasses.fields(jplonk.VerifyingKey)}
+    fields["commitments"] = {k: _jax_affine(p)
+                             for k, p in pk.vk.commitments.items()}
+    back = pk_from_numpy(coeffs, jlayout, jplonk.VerifyingKey(**fields),
+                         port["srs"])
+    assert back.vk == pk.vk
+    assert chip_smoke.vk_digest(back.vk) == chip_smoke.vk_digest(pk.vk)
+    assert sorted(back.fixed_coeffs) == sorted(pk.fixed_coeffs)
+    for k, v in pk.fixed_coeffs.items():
+        assert back.fixed_coeffs[k].dtype == torch.int32
+        assert torch.equal(back.fixed_coeffs[k], v), k
+    assert type(back.layout) is type(pk.layout)
+    for f in dataclasses.fields(type(pk.layout)):
+        assert getattr(back.layout, f.name) is getattr(pk.layout, f.name)
+    assert back.srs is port["srs"]
+
+
+@pytest.mark.slow
+def test_voter_k13_proof():
+    """The main path at the slice's shape on the CPU: voter circuit,
+    k=13, PLUME off; the vk digest is the frozen JAX digest, the proof
+    verifies and a flipped byte does not."""
+    from zksnap_tpu_torch.circuits.voter import VoterFlags, voter_circuit
+    from zksnap_tpu_torch.natives import generate_random_voter_circuit_inputs
+    from zksnap_tpu_torch.trace import Context, check
+
+    v = _vectors("torch_port_v1.json")["voter_k13"]
+    inp = generate_random_voter_circuit_inputs(random.Random(v["inputs_seed"]))
+    ctx = Context(lookup_bits=v["lookup_bits"])
+    pub = []
+    voter_circuit(ctx, inp, pub, VoterFlags(check_plume=False))
+    inst = [c.value for c in pub]
+    check(ctx, inst)
+    assert [str(x) for x in inst] == v["instances"]
+    srs = gen_srs(v["k"])
+    pk = plonk.keygen(ctx, v["k"], srs)
+    assert {k: getattr(pk.vk, k) for k in v["vk_shape"]} == v["vk_shape"]
+    assert chip_smoke.vk_digest(pk.vk) == v["vk_sha256"]
+    proof = plonk.prove(pk, inst, random.Random(1))
+    assert plonk.verify(pk.vk, srs.g2, srs.tau_g2, inst, proof)
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    assert not plonk.verify(pk.vk, srs.g2, srs.tau_g2, inst, bytes(bad))

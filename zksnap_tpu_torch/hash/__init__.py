@@ -1,0 +1,16 @@
+# Copy of zksnap_tpu/hash/__init__.py (host parts only): jax-free; goes once zksnap_tpu imports jax lazily.
+from .poseidon import (
+    CAP_TAG,
+    PoseidonNative,
+    PoseidonSpec,
+    default_spec,
+    hash_fixed_native,
+)
+
+__all__ = [
+    "CAP_TAG",
+    "PoseidonNative",
+    "PoseidonSpec",
+    "default_spec",
+    "hash_fixed_native",
+]

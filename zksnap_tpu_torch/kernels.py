@@ -1,0 +1,136 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The sources under `csrc/` compile with one `nvcc` call into a shared
+library with a plain C interface, `build/torch_kernels/
+libzksnap_kernels_<srchash>.so` at the repository root, on first use;
+`ctypes` loads it.  Every C entry launches on the caller's stream and
+returns `cudaGetLastError()`; `check` raises if that is not 0.
+
+Nothing here runs at import time: the CPU tests import every module, and
+a machine without `nvcc` never reaches `library()`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+
+CSRC = os.path.join(os.path.dirname(__file__), "csrc")
+SOURCES = ("mont.cu", "point.cu", "bucket_scan.cu")
+HEADERS = ("field.cuh", "point.cuh")
+BUILD_DIR = os.path.join(os.path.dirname(__file__), "..", "build",
+                         "torch_kernels")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_I = ctypes.c_int
+_SIGNATURES = {
+    "zk_mont_mul": [_P, _P, _P, _LL, _LL, _LL, _P, _P],
+    "zk_mont_addsub": [_P, _P, _P, _LL, _LL, _LL, _I, _P, _P],
+    "zk_point": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _P, _P],
+    "zk_bucket_scan": [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P, _P],
+}
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for name in HEADERS + SOURCES:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def build(build_dir: str = BUILD_DIR) -> str:
+    """Compile the kernels if this source hash has no library yet; returns
+    the library path.  The compiler's output (ptxas register counts
+    included) is kept beside it as build_<hash>.log."""
+    build_dir = os.path.abspath(build_dir)
+    tag = source_hash()
+    lib = os.path.join(build_dir, f"libzksnap_kernels_{tag}.so")
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[os.path.join(CSRC, s) for s in SOURCES]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    with open(os.path.join(build_dir, f"build_{tag}.log"), "w") as f:
+        f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(build())
+    for name, args in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+@functools.cache
+def modulus_words(p: int) -> ctypes.Array:
+    """Host array of 17 uint32: p, R mod p (both 8 little-endian words) and
+    n0 = -p^-1 mod 2^32 -- the kernels' Modulus struct."""
+    one = (1 << 256) % p
+    n0 = (-pow(p, -1, 1 << 32)) % (1 << 32)
+    words = [(p >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+    words += [(one >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+    words.append(n0)
+    arr = (ctypes.c_uint32 * 17)(*words)
+    return arr
+
+
+def mod_ptr(p: int) -> int:
+    return ctypes.addressof(modulus_words(p))
+
+
+def stream_of(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def rows(t, n: int) -> int:
+    """Check a [n, 16] int32 contiguous CUDA operand and return its pointer
+    (the kernels read a row as four 16-byte vectors)."""
+    import torch
+
+    if not (t.dtype == torch.int32 and t.is_cuda and t.is_contiguous()):
+        raise ValueError(f"kernel operand must be contiguous int32 on a CUDA "
+                         f"device, got {t.dtype} on {t.device}")
+    if t.shape[-1] != 16 or t.numel() != 16 * n:
+        raise ValueError(f"kernel operand of shape {tuple(t.shape)}, "
+                         f"expected {n} rows of 16 limbs")
+    if t.data_ptr() % 16:
+        raise ValueError("kernel operand rows must be 16-byte aligned")
+    return t.data_ptr()
+

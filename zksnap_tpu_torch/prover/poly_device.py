@@ -1,0 +1,197 @@
+"""Device-side polynomial engine for the PLONK prover, single device
+(PyTorch port of zksnap_tpu/prover/poly_device.py).
+
+  * `commit_evals` / `commit_coeffs` -- KZG commitments: fixed-base MSM
+    over precomputed shifted tables for 2^12 <= n <= 2^20, variable-base
+    Pippenger otherwise, both in RCB projective coordinates;
+  * `coset_evals`, `evals_to_coeffs`, `coeffs_to_evals` -- NTTs;
+  * `eval_coeffs_list` -- coefficient-form polys evaluated at a point;
+  * `opening_witness_evals` -- (f - f(p)) / (X - p) pointwise on the
+    domain with a batched inverse;
+  * `rlc_list` -- random linear combinations.
+
+Every tensor stays on the device of its inputs; `device` arguments name
+it where a function creates tensors from host data.  The JAX package's
+mesh-sharded paths and its uint16 at-rest packing are not ported yet.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+from torch.utils.weak import WeakIdKeyDictionary
+
+from ..curves.jacobian import JacPoint
+from ..fields.common import N_LIMBS, ints_to_limbs, ints_to_limbs_fast
+from ..fields.field import bn254_fr
+from ..msm.pippenger import _group_windows, msm_impl
+from ..poly.domain import domain
+from ..poly.ntt import _ntt_impl
+
+FR = bn254_fr()
+
+
+def pow_series_uncached(base_int: int, n: int, device="cpu"):
+    """[n,16] Montgomery table of base^i by log-depth doubling."""
+    size = max(1, 1 << (n - 1).bit_length())
+    arr = FR.one_t(device)[None, :]
+    length = 1
+    while length < size:
+        step = FR.const_t(pow(base_int, length, FR.p), device)
+        arr = torch.cat([arr, FR.mul(arr, step[None, :])])
+        length *= 2
+    return arr[:n]
+
+
+@functools.lru_cache(maxsize=32)
+def _pow_series_cached(base_int: int, n: int, device: str):
+    return pow_series_uncached(base_int, n, device)
+
+
+def pow_series(base_int: int, n: int, device="cpu"):
+    """Cached `pow_series_uncached` (omega and generator powers)."""
+    return _pow_series_cached(base_int, n, str(torch.device(device)))
+
+
+def to_device_poly(values, device="cpu"):
+    """Host evaluations -> Montgomery limb tensor [n, 16] on `device`.
+
+    Accepts a list of python ints, an (n, 16) canonical limb-row array
+    (the trace layout representation) or a 1-D array of small
+    non-negative ints (< 2^64).  One multiply by R^2 (kernel K1) makes
+    the Montgomery lift."""
+    if isinstance(values, np.ndarray):
+        if values.ndim == 2:
+            assert values.shape[1] == N_LIMBS
+            canon = values.astype(np.int32)
+        else:
+            v = values.astype(np.int64)
+            canon = np.zeros((len(v), N_LIMBS), dtype=np.int32)
+            for limb in range(4):
+                canon[:, limb] = (v >> (16 * limb)) & 0xFFFF
+    else:
+        canon = ints_to_limbs_fast(values, FR.p)
+    t = torch.from_numpy(canon).to(device)
+    return FR.mul(t, FR.const_t(FR.R, device)[None, :])
+
+
+# -- KZG commitments ---------------------------------------------------------
+
+# Fixed-base commit tables: the SRS bases never change per k, so shifted
+# tables remove the doubling ladder and the per-window bucket sets.  Used
+# for commits of FB_MIN_N <= n <= FB_MAX_N points (the JAX package's
+# policy); a table lives as long as the point tensor it was built from.
+FB_MIN_N, FB_MAX_N, FB_C = 1 << 12, 1 << 20, 16
+_FB_TABLES = WeakIdKeyDictionary()
+
+
+def _fb_table(points: JacPoint, n: int):
+    from ..msm.fixed_base import build_table
+
+    per_n = _FB_TABLES.setdefault(points.x, {})
+    if n not in per_n:
+        per_n[n] = build_table(points, n, FB_C)
+    return per_n[n]
+
+
+def commit_evals(srs_lagrange: JacPoint, values) -> JacPoint:
+    """Commit an evaluation-form poly: MSM(values, [L_i(tau)]G).
+
+    values: [n, 16] CANONICAL scalar limbs.  The MSM runs in RCB
+    projective coordinates; the result comes back as Jacobian
+    (X*Z, Y*Z^2, Z)."""
+    n = values.shape[0]
+    if FB_MIN_N <= n <= FB_MAX_N:
+        from ..msm.fixed_base import commit_fixed
+
+        return commit_fixed(_fb_table(srs_lagrange, n), values)
+    from ..curves.proj import bn254_proj_ops
+
+    ops = bn254_proj_ops()
+    Fq = ops.F
+    c = max(8, min(16, n.bit_length() - 4))
+    n_windows = -(-254 // c)
+    r = msm_impl(ops, JacPoint(srs_lagrange.x[:n], srs_lagrange.y[:n],
+                               srs_lagrange.z[:n]), values, c, n_windows,
+                 window_group=_group_windows(n, n_windows),
+                 signed=n_windows * c > Fq.bits)
+    return JacPoint(Fq.mul(r.x, r.z), Fq.mul(r.y, Fq.square(r.z)), r.z)
+
+
+def mont_to_canonical(values):
+    """[n,16] Montgomery -> canonical (for MSM scalars)."""
+    return FR.mont_reduce_narrow(values)
+
+
+def commit_coeffs(srs_monomial: JacPoint, coeffs) -> JacPoint:
+    """Commit a coefficient-form poly over the monomial SRS (coeffs in
+    Montgomery form)."""
+    return commit_evals(srs_monomial, mont_to_canonical(coeffs))
+
+
+# -- NTTs -------------------------------------------------------------------
+
+def evals_to_coeffs(evals, k: int):
+    """[n,16] evaluations on H (natural order) -> coefficient form."""
+    dom = domain(k)
+    c = _ntt_impl(evals, dom.twiddles_inv(evals.device), k, FR)
+    return FR.mul(c, FR.const_t(dom.n_inv, evals.device)[None, :])
+
+
+def coeffs_to_evals(coeffs, k: int):
+    """[n,16] coefficient form -> evaluations on H (natural order)."""
+    return _ntt_impl(coeffs, domain(k).twiddles(coeffs.device), k, FR)
+
+
+def coset_evals(coeffs, s_pows, k: int):
+    """Evaluate a coefficient-form poly on the coset {s * w^i}: scale
+    coefficient j by s^j (s_pows, [n,16] Montgomery), then forward NTT."""
+    return coeffs_to_evals(FR.mul(coeffs, s_pows), k)
+
+
+# -- batched evaluation at a point ------------------------------------------
+
+def eval_coeffs_list(polys: list, x_int: int, k: int) -> list[int]:
+    """Coefficient-form polys -> values at x (host ints): a multiply by
+    the power table of x and a tree sum, for the stacked list."""
+    n = 1 << k
+    dev = polys[0].device
+    pw = pow_series_uncached(x_int, n, dev)
+    acc = FR.mul(torch.stack(list(polys)), pw[None])
+    m = n
+    while m > 1:
+        acc = FR.add(acc[:, : m // 2], acc[:, m // 2 : m])
+        m //= 2
+    return FR.from_mont(acc[:, 0])
+
+
+# -- opening witness ---------------------------------------------------------
+
+def opening_witness_evals(combined, eval_int: int, p_int: int, k: int):
+    """Evaluation form of (f(X) - f(p)) / (X - p) on H."""
+    n = 1 << k
+    dev = combined.device
+    w = pow_series(domain(k).omega, n, dev)
+    denom = FR.sub(w, FR.const_t(p_int, dev)[None, :])
+    inv = FR.batch_inv(denom)
+    num = FR.sub(combined, FR.const_t(eval_int, dev)[None, :])
+    return FR.mul(num, inv)
+
+
+# -- random linear combination ------------------------------------------------
+
+def rlc_list(polys: list, coef_ints: list[int], k: int):
+    """sum_i coef_i * poly_i over a list of [n,16] polys: one stacked
+    multiply, then a tree of adds."""
+    dev = polys[0].device
+    coefs = torch.from_numpy(ints_to_limbs(
+        [c % FR.p * FR.R % FR.p for c in coef_ints])).to(dev)
+    acc = FR.mul(torch.stack(list(polys)), coefs[:, None, :])
+    m = len(polys)
+    while m > 1:
+        h = m // 2
+        acc = torch.cat([FR.add(acc[:h], acc[m - h : m]), acc[h : m - h]])
+        m = m - h
+    return acc[0]
