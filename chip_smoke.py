@@ -4,25 +4,45 @@ CUDA GPU and check it: the quickest proof that the port still starts.
     python3 chip_smoke.py
 
 Phases:
-  1. build the four hand-written CUDA kernels from csrc/ (nvcc, timed);
+  1. build the six hand-written CUDA kernels from csrc/ (one nvcc for each
+     source, all started together, timed);
   2. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes (n = 8192 field elements and points; the
-     fixed-base bucket stream of 16 * 8192 pairs), edge cases included,
-     bit-exact, and time both;
+     main paths' shapes, edge cases included, bit-exact, and time both:
+     the k=13 path's (n = 8192 field elements and points; the fixed-base
+     bucket stream of 16 * 8192 pairs), the k=21 path's (field ops over
+     2^21 rows; padd over 32768 lanes; a variable-base pass of 2 * 2^21
+     signed-digit pairs, M = 32768 lanes x K = 128 steps; the fused
+     reduction at W = 16 windows of B = 2^15 buckets and c = 16) and
+     K=7's fused reduction (W = 32 windows of 128, c = 8);
   3. K=7 parity with the frozen JAX vectors: the port's keygen gives the
-     frozen vk digest and the port's verifier accepts the frozen proof;
-  4. the main path: voter circuit at k=13 (check_plume=False), SRS made on
-     the card in a fresh directory, keygen (vk digest against the frozen
-     JAX digest), a cold and a warm proof, verification, and a tampered
-     proof rejected;
-  5. the kernels' launch counts over phase 4, each required > 0;
-  6. one more warm proof under torch.profiler: the device's busy share
+     frozen vk digest, the port's verifier accepts the frozen proof, and
+     a second keygen with ZKSNAP_TPU_FUSED_REDUCE=1 (every commit through
+     K5 and K6) gives the frozen digest again;
+  4. the first path: voter circuit at k=13 (check_plume=False), SRS made
+     on the card in a fresh directory, keygen (vk digest against the
+     frozen JAX digest), a cold and a warm proof, verification, and a
+     tampered proof rejected; the launch counts of K1-K4 over it, each
+     required > 0;
+  5. one more warm proof under torch.profiler: the device's busy share
      and the kernels that hold it;
-  7. the card's name and power limit.
+  6. the second path, with ZKSNAP_TPU_FUSED_REDUCE=1: the voter circuit
+     with PLUME on at k=21 (its stats and instances against the frozen
+     JAX ones), SRS made on the card, keygen (vk shape against the frozen
+     one), a cold and a warm proof, verification, a tampered proof
+     rejected, the peak device memory of keygen and of a proof; the
+     launch counts of K1-K6 over it, each required > 0; one more warm
+     proof under torch.profiler; then one 2^21 commit fused and unfused,
+     the same point;
+  7. the card's name and power limit, and the kernels' line.
 
 Phase 2's per-call times come from CUDA events over repeated calls and
 include the host's launch path; the device time per launch comes from
-the profiler.  Details go to chiprun_out/chip_smoke.json.
+the profiler.  Each kernel's bound is the larger of the integer
+operations that its function needs at the H100's INT32 rate and its
+bytes (inputs read once, outputs written once) at 3.35 TB/s.  The
+kernels line gives each kernel at the k=21 path's shape, with that
+path's launches; every shape's numbers go to
+chiprun_out/chip_smoke.json.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 check fails.  The last line of standard output is
@@ -31,6 +51,7 @@ check fails.  The last line of standard output is
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -45,6 +66,31 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 VECTORS = os.path.join(ROOT, "tests", "vectors")
+FUSED = "ZKSNAP_TPU_FUSED_REDUCE"
+
+# The bound model.  INT32 rate of an H100 SXM: 132 SMs x 64 INT32 lanes
+# (Hopper white paper) at the 1.98 GHz that its 67 TFLOP/s float32 (data
+# sheet) implies; HBM3 at 3.35 TB/s (data sheet).  A Montgomery product
+# is 8 rounds of 16 32x32->64 multiply-adds (two 32-bit operations each)
+# and one 32-bit multiply; an add or subtract is 8 word adds, 8 word
+# subtracts and 8 selects.  The point formulas count their products and
+# adds for b3 = 9 (BN254).
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+HBM_BYTES_PER_S = 3.35e12
+ROW = 64  # bytes of one field element at rest (16 int32 limbs)
+MUL_OPS = 8 * (16 * 2 + 1)
+ADD_OPS = 24
+PADD_OPS = 12 * MUL_OPS + 27 * ADD_OPS
+PMADD_OPS = 11 * MUL_OPS + 21 * ADD_OPS
+PDBL_OPS = 8 * MUL_OPS + 13 * ADD_OPS
+
+
+def bound(ops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the two."""
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
 def log(*a):
@@ -82,6 +128,18 @@ def build_fixed_circuit():
     ctx.constrain_equal(e, a)
     ctx.expose_public(d)
     return ctx
+
+
+def timed(fn):
+    """(fn(), its milliseconds from CUDA events): one call, no warm-up."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -200,7 +258,69 @@ def point_inputs(curve, F, n: int, rng, dev, jacobian: bool):
     return tensors(P), tensors(Qg), tensors(Qa)
 
 
+def shape_result(results, name: str, tag: str, **r) -> dict:
+    """Record kernel `name`'s check and times at the shape `tag`."""
+    results.setdefault(name + "_shapes", {})[tag] = r
+    return r
+
+
+def time_field_kernels(results, tag: str, F, a, b, errs):
+    """K1 and K2 (add) timed on a, b: call, device and plain times."""
+    from zksnap_tpu_torch.fields import pallas_mont as pm
+
+    n = a.shape[0]
+    for name, fn, plain, ops, sym in (
+            ("K1", lambda: pm.mont_mul(a, b, F.p),
+             lambda: pm.mont_mul_plain(a, b, F.p), MUL_OPS, "mont_mul_kernel"),
+            ("K2", lambda: pm.mont_addsub(a, b, F.p, "add"),
+             lambda: pm.mont_addsub_plain(a, b, F.p, "add"), ADD_OPS,
+             "mont_addsub_kernel")):
+        r = shape_result(
+            results, name, tag, n=n, max_abs_err=errs[name],
+            ms=cuda_ms(fn, 200 if n <= 8192 else 20),
+            plain_ms=cuda_ms(plain, 5 if n <= 8192 else 1),
+            device_ms=kernel_device_ms(fn, sym),
+            **bound(n * ops, n * 3 * ROW))
+        log(f"{name} bit-exact ({tag}, n={n}): kernel {r['ms']:.4f} ms a call "
+            f"({fmt_ms(r['device_ms'])} on the device), plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4g} ms")
+
+
+def check_bucket_scan(results, tag: str, Qa, ids, M: int):
+    """K4 over the sorted stream Qa with bucket ids `ids` (host), M lanes:
+    bit-exact against its plain version, timed."""
+    from zksnap_tpu_torch.curves import fused
+    from zksnap_tpu_torch.curves.native import BN254_G1
+    from zksnap_tpu_torch.fields import bn254_fq
+
+    p, b3 = bn254_fq().p, 3 * BN254_G1.b
+    pairs = ids.shape[0]
+    K = pairs // M
+    flags = torch.cat([torch.ones(1, dtype=torch.bool),
+                       ids[1:] != ids[:-1]]).to(Qa[0].device)
+    got = fused.bucket_scan(Qa, flags, M, K, p, b3)
+    want, plain_ms = timed(lambda: fused.bucket_scan_plain(Qa, flags, M, K,
+                                                           p, b3))
+    err = max_abs_err(got, want)
+    require(err == 0, ("K4", tag, err))
+    del got, want
+    r = shape_result(
+        results, "K4", tag, M=M, K=K, max_abs_err=err, plain_ms=plain_ms,
+        ms=cuda_ms(lambda: fused.bucket_scan(Qa, flags, M, K, p, b3), 20),
+        device_ms=kernel_device_ms(
+            lambda: fused.bucket_scan(Qa, flags, M, K, p, b3),
+            "bucket_scan_kernel"),
+        # the adds this stream needs: every position but a segment's first
+        **bound((pairs - int(flags.sum())) * PMADD_OPS,
+                pairs * (3 * ROW + 1) + pairs * 3 * ROW))
+    log(f"K4 bucket scan bit-exact ({tag}, M={M} lanes x K={K} steps): "
+        f"kernel {r['ms']:.4f} ms a call ({fmt_ms(r['device_ms'])} on the "
+        f"device), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4g} ms")
+
+
 def phase2(dev, rng, results):
+    """K1-K4 at the k=13 path's shapes: n = 8192 field elements and
+    points, the fixed-base bucket stream of 16 * 8192 pairs."""
     from zksnap_tpu_torch.curves import fused
     from zksnap_tpu_torch.curves.native import BN254_G1, SECP256K1
     from zksnap_tpu_torch.fields import bn254_fq, bn254_fr, secp256k1_fp
@@ -226,23 +346,7 @@ def phase2(dev, rng, results):
     require(k1_err == 0 and k2_err == 0, (k1_err, k2_err))
     F = bn254_fr()
     a, b = field_inputs(F, n, rng, dev)
-    results["K1"] = dict(
-        max_abs_err=k1_err,
-        ms=cuda_ms(lambda: pm.mont_mul(a, b, F.p), 200),
-        plain_ms=cuda_ms(lambda: pm.mont_mul_plain(a, b, F.p), 5))
-    results["K2"] = dict(
-        max_abs_err=k2_err,
-        ms=cuda_ms(lambda: pm.mont_addsub(a, b, F.p, "add"), 200),
-        plain_ms=cuda_ms(lambda: pm.mont_addsub_plain(a, b, F.p, "add"), 5))
-    results["K1"]["device_ms"] = kernel_device_ms(
-        lambda: pm.mont_mul(a, b, F.p), "mont_mul_kernel")
-    results["K2"]["device_ms"] = kernel_device_ms(
-        lambda: pm.mont_addsub(a, b, F.p, "add"), "mont_addsub_kernel")
-    for name in ("K1", "K2"):
-        log(f"{name} bit-exact over bn254 Fr/Fq, secp256k1 Fp (n={n}): "
-            f"kernel {results[name]['ms']:.4f} ms a call "
-            f"({fmt_ms(results[name]['device_ms'])} on the device), plain "
-            f"{results[name]['plain_ms']:.4f} ms")
+    time_field_kernels(results, "k13", F, a, b, {"K1": k1_err, "K2": k2_err})
 
     # K3: six kinds; projective kinds on BN254, Jacobian on BN254 and secp
     k3_err = 0
@@ -269,43 +373,169 @@ def phase2(dev, rng, results):
                         lambda: fused.point(kind, list(ins), Fq.p, b3),
                         "point_kernel"))
     for kind, (ms, pms, dms) in k3_ms.items():
-        log(f"K3 {kind:5s} bit-exact (n={n}): kernel {ms:.4f} ms a call "
+        log(f"K3 {kind:5s} bit-exact (k13, n={n}): kernel {ms:.4f} ms a call "
             f"({fmt_ms(dms)} on the device), plain {pms:.4f} ms")
-    results["K3"] = dict(max_abs_err=k3_err, ms=k3_ms["padd"][0],
-                         plain_ms=k3_ms["padd"][1], device_ms=k3_ms["padd"][2])
+    shape_result(results, "K3", "k13", n=n, max_abs_err=k3_err,
+                 ms=k3_ms["padd"][0], plain_ms=k3_ms["padd"][1],
+                 device_ms=k3_ms["padd"][2],
+                 **bound(n * PADD_OPS, n * 9 * ROW))
     results["K3_kinds"] = {kind: {"ms": ms, "plain_ms": pms, "device_ms": dms}
                            for kind, (ms, pms, dms) in k3_ms.items()}
 
     # K4: the fixed-base stream at k=13: 16 windows * 8192 pairs into
     # 2^15 signed buckets, sorted, identities encoded (0, 0, 0)
-    Fq = bn254_fq()
     pairs, buckets = 16 * n, 1 << 15
-    M = CUDA_LANES
-    K = pairs // M
-    _, _, Qa = point_inputs(BN254_G1, Fq, pairs, rng, dev, False)
+    _, _, Qa = point_inputs(BN254_G1, bn254_fq(), pairs, rng, dev, False)
     ids = torch.sort(torch.randint(0, buckets + 1, (pairs,),
                                    generator=torch.Generator().manual_seed(7)))[0]
-    flags = torch.cat([torch.ones(1, dtype=torch.bool),
-                       ids[1:] != ids[:-1]]).to(dev)
-    got = fused.bucket_scan(Qa, flags, M, K, Fq.p, 3 * BN254_G1.b)
-    want = fused.bucket_scan_plain(Qa, flags, M, K, Fq.p, 3 * BN254_G1.b)
-    k4_err = max_abs_err(got, want)
-    require(k4_err == 0, k4_err)
-    results["K4"] = dict(
-        max_abs_err=k4_err,
-        ms=cuda_ms(lambda: fused.bucket_scan(Qa, flags, M, K, Fq.p, 9), 20),
-        plain_ms=cuda_ms(lambda: fused.bucket_scan_plain(
-            Qa, flags, M, K, Fq.p, 9), 2))
-    results["K4"]["device_ms"] = kernel_device_ms(
-        lambda: fused.bucket_scan(Qa, flags, M, K, Fq.p, 9),
-        "bucket_scan_kernel")
-    log(f"K4 bucket scan bit-exact (M={M} lanes x K={K} steps): kernel "
-        f"{results['K4']['ms']:.4f} ms a call "
-        f"({fmt_ms(results['K4']['device_ms'])} on the device), plain "
-        f"{results['K4']['plain_ms']:.4f} ms")
+    check_bucket_scan(results, "k13", Qa, ids, CUDA_LANES)
+
+
+def phase2_k21(dev, rng, results):
+    """K1-K4 at the k=21 path's shapes: field ops over one 2^21-row poly,
+    padd over the lane-carry scan's 32768 lanes (the commonest point
+    launch of a 2^21 commit), and one variable-base pass: 2 windows of
+    2^21 signed-digit pairs into 2 * 2^15 buckets and the digit-0 bucket,
+    sorted, M = 32768 lanes x K = 128 steps.  Rows are drawn from 8192
+    seeded rows (edge values, identities, P beside -P among them)."""
+    from zksnap_tpu_torch.curves import fused
+    from zksnap_tpu_torch.curves.native import BN254_G1
+    from zksnap_tpu_torch.fields import bn254_fq, bn254_fr
+    from zksnap_tpu_torch.fields import pallas_mont as pm
+    from zksnap_tpu_torch.msm.pippenger import CUDA_LANES
+
+    gen = torch.Generator().manual_seed(rng.randrange(1 << 31))
+
+    def draw(arrays, n):
+        idx = torch.randint(0, arrays[0].shape[0], (n,), generator=gen)
+        idx = idx.to(arrays[0].device)
+        return tuple(a[idx] for a in arrays)
+
+    n = 1 << 21
+    F = bn254_fr()
+    a, b = draw(field_inputs(F, 8192, rng, dev), n)
+    errs = {"K1": max_abs_err([pm.mont_mul(a, b, F.p)],
+                              [pm.mont_mul_plain(a, b, F.p)]),
+            "K2": max(max_abs_err([pm.mont_addsub(a, b, F.p, mode)],
+                                  [pm.mont_addsub_plain(a, b, F.p, mode)])
+                      for mode in ("add", "sub"))}
+    require(errs == {"K1": 0, "K2": 0}, ("k21", errs))
+    time_field_kernels(results, "k21", F, a, b, errs)
+    del a, b
+
+    Fq = bn254_fq()
+    b3 = 3 * BN254_G1.b
+    m = CUDA_LANES
+    P, Qg, Qa = point_inputs(BN254_G1, Fq, 8192, rng, dev, False)
+    ins = list(draw(P + Qg, m))
+    err = max_abs_err(fused.point("padd", ins, Fq.p, b3),
+                      fused.point_plain("padd", ins, Fq.p, b3))
+    require(err == 0, ("K3 padd", "k21", err))
+    r = shape_result(
+        results, "K3", "k21", n=m, max_abs_err=err,
+        ms=cuda_ms(lambda: fused.point("padd", ins, Fq.p, b3), 50),
+        plain_ms=cuda_ms(lambda: fused.point_plain("padd", ins, Fq.p, b3), 2),
+        device_ms=kernel_device_ms(lambda: fused.point("padd", ins, Fq.p, b3),
+                                   "point_kernel"),
+        **bound(m * PADD_OPS, m * 9 * ROW))
+    log(f"K3 padd  bit-exact (k21, n={m}): kernel {r['ms']:.4f} ms a call "
+        f"({fmt_ms(r['device_ms'])} on the device), plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4g} ms")
+
+    pairs, buckets = 2 * n, 2 * (1 << 15)  # id `buckets` is digit 0
+    ids = torch.sort(torch.randint(0, buckets + 1, (pairs,), generator=gen))[0]
+    check_bucket_scan(results, "k21", draw(Qa, pairs), ids, m)
+
+
+# (tag, c, W) of the fused reduction: the k=21 commit's window and the
+# K=7 commit's, signed digits (B = 2^(c-1) buckets a window)
+REDUCE_SHAPES = (("k21", 16, 16), ("k7", 8, 32))
+
+
+def reduce_inputs(F, curve, n: int, rng, dev):
+    """n projective points (x*l : y*l : l) on the card, random multiples
+    of a pool with random l; rows 0, 1 are identities (0 : l : 0), row 3
+    is -(row 2), rows 4 and 5 are equal."""
+    from zksnap_tpu_torch.curves.native import AffinePoint
+
+    g = AffinePoint.generator(curve)
+    pool = [rng.randrange(1, curve.n) * g for _ in range(64)]
+    px = F.to_mont([q.x for q in pool], dev)
+    py = F.to_mont([q.y for q in pool], dev)
+    gen = torch.Generator().manual_seed(rng.randrange(1 << 31))
+    idx = torch.randint(0, len(pool), (n,), generator=gen).to(dev)
+    x, y = px[idx], py[idx]
+    y[3] = F.neg(y[2])
+    x[3] = x[2]
+    x[5], y[5] = x[4], y[4]
+    lam = F.to_mont([rng.randrange(1, F.p) for _ in range(n)], dev)
+    X, Y = F.mul(x, lam), F.mul(y, lam)
+    X[:2] = 0
+    Y[:2] = lam[:2]
+    Z = lam.clone()
+    Z[:2] = 0
+    return X, Y, Z
+
+
+def phase2_reduce(dev, rng, results):
+    """K5 and K6 against their plain versions at the k=21 and K=7 shapes
+    of the fused reduction, edge cases included: identity buckets, a
+    window of identities, P beside -P, equal buckets."""
+    from zksnap_tpu_torch.curves import fused
+    from zksnap_tpu_torch.curves.native import BN254_G1
+    from zksnap_tpu_torch.fields import bn254_fq
+
+    F = bn254_fq()
+    b3 = 3 * BN254_G1.b
+    for tag, c, W in REDUCE_SHAPES:
+        B = 1 << (c - 1)
+        flat = reduce_inputs(F, BN254_G1, W * B, rng, dev)
+        for a in flat:  # window 1: all identities
+            a[B : 2 * B] = a[0]
+        got = fused.weighted_suffix(flat, B, F.p, b3)
+        want, plain_ms = timed(
+            lambda: fused.weighted_suffix_plain(flat, B, F.p, b3))
+        err = max_abs_err(got, want)
+        require(err == 0, ("K5", tag, err))
+        # the function's work: a sequential double suffix, two padd a
+        # bucket (the kernel's rounds do 2 * log2(B) times as many)
+        adds = 2 * W * B
+        k5 = shape_result(
+            results, "K5", tag, W=W, B=B, max_abs_err=err, plain_ms=plain_ms,
+            ms=cuda_ms(lambda: fused.weighted_suffix(flat, B, F.p, b3), 5),
+            device_ms=kernel_device_ms(
+                lambda: fused.weighted_suffix(flat, B, F.p, b3),
+                "weighted_suffix_kernel", reps=3),
+            **bound(adds * PADD_OPS, W * B * 6 * ROW))
+        wsums = reduce_inputs(F, BN254_G1, W, rng, dev)
+        got = fused.ladder_tree(wsums, c, W, F.p, b3)
+        want, plain_ms = timed(
+            lambda: fused.ladder_tree_plain(wsums, c, W, F.p, b3))
+        err = max_abs_err(got, want)
+        require(err == 0, ("K6", tag, err))
+        # the function's work: Horner's combine, c doublings and one padd
+        # for each window past the first (the kernel's masked ladder
+        # doubles every lane in parallel, sum_w c*w in all)
+        k6 = shape_result(
+            results, "K6", tag, c=c, W=W, max_abs_err=err, plain_ms=plain_ms,
+            ms=cuda_ms(lambda: fused.ladder_tree(wsums, c, W, F.p, b3), 20),
+            device_ms=kernel_device_ms(
+                lambda: fused.ladder_tree(wsums, c, W, F.p, b3),
+                "ladder_tree_kernel"),
+            **bound(c * (W - 1) * PDBL_OPS + (W - 1) * PADD_OPS,
+                    (W + 1) * 3 * ROW))
+        for name, r in (("K5 weighted suffix", k5),
+                        ("K6 ladder and tree", k6)):
+            log(f"{name} bit-exact ({tag} shape, "
+                + ", ".join(f"{key}={r[key]}" for key in ("c", "W", "B")
+                            if key in r)
+                + f"): kernel {r['ms']:.4f} ms a call "
+                f"({fmt_ms(r['device_ms'])} on the device), plain "
+                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4g} ms")
 
 
 def phase3(dev, srs_dir):
+    from zksnap_tpu_torch.curves.fused import ladder_tree, weighted_suffix
     from zksnap_tpu_torch.prover.plonk import keygen, verify
     from zksnap_tpu_torch.prover.srs import gen_srs
 
@@ -321,6 +551,32 @@ def phase3(dev, srs_dir):
             "the frozen K=7 proof does not verify")
     log(f"K=7: vk digest {got[:16]}... equals the frozen JAX digest; "
         "the frozen proof verifies")
+    # every K=7 commit is variable-base: with the fused reduction on, the
+    # digest holds K5 and K6 to the frozen JAX keygen
+    weighted_suffix.launches = ladder_tree.launches = 0
+    with fused_reduce("1"):
+        fused_pk = keygen(build_fixed_circuit(), 7, srs)
+    got = vk_digest(fused_pk.vk)
+    launches = (weighted_suffix.launches, ladder_tree.launches)
+    require(got == v["vk_sha256"], ("fused", got, v["vk_sha256"]))
+    require(min(launches) > 0, ("K5, K6 launches in the fused keygen",
+                                launches))
+    log(f"K=7 with {FUSED}=1: vk digest equals the frozen JAX digest "
+        f"(K5 x{launches[0]}, K6 x{launches[1]})")
+
+
+@contextlib.contextmanager
+def fused_reduce(value: str):
+    """ZKSNAP_TPU_FUSED_REDUCE set to `value` inside the block."""
+    saved = os.environ.get(FUSED)
+    os.environ[FUSED] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(FUSED)
+        else:
+            os.environ[FUSED] = saved
 
 
 def phase4(dev, srs_dir, times):
@@ -383,6 +639,107 @@ def phase4(dev, srs_dir, times):
     return pk, inst
 
 
+def phase_plume(dev, srs_dir, times):
+    """The voter circuit with PLUME on at k=21, the reference's default
+    voter at its full shape, with the fused reduction on."""
+    from zksnap_tpu_torch.circuits.voter import VoterFlags, voter_circuit
+    from zksnap_tpu_torch.natives import generate_random_voter_circuit_inputs
+    from zksnap_tpu_torch.prover.plonk import keygen, prove, verify
+    from zksnap_tpu_torch.prover.srs import gen_srs
+    from zksnap_tpu_torch.trace import Context, check
+
+    with open(os.path.join(VECTORS, "torch_port_v1.json")) as f:
+        v = json.load(f)["voter_plume_k21"]
+    k = v["k"]
+    t0 = time.time()
+    inp = generate_random_voter_circuit_inputs(random.Random(v["inputs_seed"]))
+    ctx = Context(lookup_bits=v["lookup_bits"])
+    pub = []
+    voter_circuit(ctx, inp, pub, VoterFlags(check_plume=True))
+    inst = [c.value for c in pub]
+    times["synthesis_s"] = time.time() - t0
+    t0 = time.time()
+    check(ctx, inst)
+    times["check_s"] = time.time() - t0
+    stats = {key: int(x) for key, x in ctx.stats().items()
+             if isinstance(x, int)}
+    require(stats == v["stats"], (stats, v["stats"]))
+    require([str(x) for x in inst] == v["instances"],
+            "PLUME voter instances differ from the frozen ones")
+    log(f"voter k={k} PLUME: {stats['advice_cells']} advice cells, stats and "
+        "instances equal the frozen JAX ones")
+
+    t0 = time.time()
+    srs = gen_srs(k, cache_dir=srs_dir, device=dev)
+    torch.cuda.synchronize()
+    times["srs_s"] = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    pk = keygen(ctx, k, srs)
+    torch.cuda.synchronize()
+    times["keygen_s"] = time.time() - t0
+    times["keygen_peak_bytes"] = torch.cuda.max_memory_allocated()
+    shape = {key: getattr(pk.vk, key) for key in v["vk_shape"]}
+    require(shape == v["vk_shape"], (shape, v["vk_shape"]))
+    log(f"voter k={k} PLUME: vk {shape} equals the frozen JAX shape")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    proof = prove(pk, inst)
+    torch.cuda.synchronize()
+    times["prove_cold_s"] = time.time() - t0
+    times["prove_peak_bytes"] = torch.cuda.max_memory_allocated()
+    t0 = time.time()
+    proof = prove(pk, inst)
+    torch.cuda.synchronize()
+    times["prove_warm_s"] = time.time() - t0
+    t0 = time.time()
+    ok = verify(pk.vk, srs.g2, srs.tau_g2, inst, proof)
+    times["verify_s"] = time.time() - t0
+    require(ok, "PLUME voter proof does not verify")
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    require(not verify(pk.vk, srs.g2, srs.tau_g2, inst, bytes(bad)),
+            "tampered PLUME voter proof accepted")
+    log(f"voter k={k} PLUME: proof of {len(proof)} bytes verifies; one "
+        "flipped byte is rejected")
+    log("voter k={k} PLUME: synthesis {synthesis_s:.3f} s, check {check_s:.3f}"
+        " s, SRS {srs_s:.3f} s, keygen {keygen_s:.3f} s (peak {kp:.2f} GB), "
+        "prove cold {prove_cold_s:.3f} s (peak {pp:.2f} GB), warm "
+        "{prove_warm_s:.3f} s, verify {verify_s:.3f} s".format(
+            k=k, kp=times["keygen_peak_bytes"] / 1e9,
+            pp=times["prove_peak_bytes"] / 1e9, **times))
+    return srs, pk, inst
+
+
+def fused_commit_parity(srs, times):
+    """One commit of 2^21 seeded scalars over the Lagrange SRS, fused and
+    unfused in turns: the same affine point."""
+    from zksnap_tpu_torch.curves.jacobian import bn254_ops
+    from zksnap_tpu_torch.prover.poly_device import commit_evals
+
+    n = srs.n
+    gen = torch.Generator().manual_seed(20261017)
+    vals = torch.randint(0, 1 << 16, (n, 16), generator=gen,
+                         dtype=torch.int32)
+    vals[:, 15] %= 0x3000  # canonical: below the top limb of r
+    vals = vals.to(srs.g1.x.device)
+    ops = bn254_ops()
+    pts, ms = {}, {"1": [], "0": []}
+    for mode in ("1", "0", "1", "0"):
+        with fused_reduce(mode):
+            c, t = timed(lambda: commit_evals(srs.g1_lagrange, vals))
+        pts.setdefault(mode, ops.to_affine_host(
+            type(c)(c.x[None], c.y[None], c.z[None]))[0])
+        ms[mode].append(t)
+    require(pts["1"] == pts["0"], "fused and unfused 2^21 commits differ")
+    times["commit_fused_ms"] = ms["1"]
+    times["commit_unfused_ms"] = ms["0"]
+    log(f"2^{srs.k} commit: fused and unfused give the same point; fused "
+        f"{ms['1'][0]:.1f}, {ms['1'][1]:.1f} ms, unfused {ms['0'][0]:.1f}, "
+        f"{ms['0'][1]:.1f} ms")
+
+
 def profile_prove(pk, inst, times):
     """Where the warm prove's time goes: device activity under the
     profiler, against the wall time of the same (profiled) prove."""
@@ -406,13 +763,15 @@ def main():
                  "is required")
     sys.path.insert(0, ROOT)
     from zksnap_tpu_torch import kernels
-    from zksnap_tpu_torch.curves.fused import bucket_scan, point
+    from zksnap_tpu_torch.curves.fused import (bucket_scan, ladder_tree,
+                                               point, weighted_suffix)
     from zksnap_tpu_torch.fields.pallas_mont import mont_addsub, mont_mul
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     log(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
+    t_start = time.time()
 
     # 1. build
     t0 = time.time()
@@ -430,23 +789,50 @@ def main():
     rng = random.Random(20261016)
     results = {}
     phase2(dev, rng, results)
+    phase2_k21(dev, rng, results)
+    phase2_reduce(dev, rng, results)
+    # the kernels line gives each kernel at the k=21 path's shape (its
+    # launches are that path's); the largest error is over every shape
+    for name in ("K1", "K2", "K3", "K4", "K5", "K6"):
+        shapes = results[name + "_shapes"]
+        results[name] = dict(shapes["k21"], max_abs_err=max(
+            r["max_abs_err"] for r in shapes.values()))
+
+    counters = {"K1": mont_mul, "K2": mont_addsub, "K3": point,
+                "K4": bucket_scan, "K5": weighted_suffix, "K6": ladder_tree}
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in counters.items()}
 
     work = tempfile.mkdtemp(prefix="chip_smoke_srs_",
                             dir=os.path.join(ROOT, "build"))
+    k13, k21 = {}, {}
     try:
         phase3(dev, work)
-        counters = (("K1", mont_mul), ("K2", mont_addsub), ("K3", point),
-                    ("K4", bucket_scan))
-        for _, fn in counters:
-            fn.launches = 0
-        times = {}
-        pk, inst = phase4(dev, work, times)
-        launches = {name: fn.launches for name, fn in counters}
+        zero_counts()
+        pk, inst = phase4(dev, work, k13)
+        launches_k13 = read_counts()
+        log(f"kernel launches over the voter k=13 path: {launches_k13}")
+        require(all(launches_k13[k] > 0 for k in ("K1", "K2", "K3", "K4")),
+                launches_k13)
+        profile_prove(pk, inst, k13)
+        del pk
+        with fused_reduce("1"):
+            zero_counts()
+            srs, pk, inst = phase_plume(dev, work, k21)
+            launches = read_counts()
+            log("kernel launches over the PLUME voter k=21 path: "
+                f"{launches}")
+            require(all(x > 0 for x in launches.values()), launches)
+            profile_prove(pk, inst, k21)
+        del pk
+        fused_commit_parity(srs, k21)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    log(f"kernel launches over the voter k=13 path: {launches}")
-    require(all(n > 0 for n in launches.values()), launches)
-    profile_prove(pk, inst, times)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -454,30 +840,37 @@ def main():
     log(smi.stdout.strip())
 
     meta = {
-        "K1": ("zksnap_tpu_torch/csrc/mont.cu",
+        "K1": ("mont_mul", "zksnap_tpu_torch/csrc/mont.cu",
                "zksnap_tpu/fields/pallas_mont.py:87"),
-        "K2": ("zksnap_tpu_torch/csrc/mont.cu",
+        "K2": ("mont_addsub", "zksnap_tpu_torch/csrc/mont.cu",
                "zksnap_tpu/fields/pallas_mont.py:170"),
-        "K3": ("zksnap_tpu_torch/csrc/point.cu",
+        "K3": ("point", "zksnap_tpu_torch/csrc/point.cu",
                "zksnap_tpu/curves/fused.py:382"),
-        "K4": ("zksnap_tpu_torch/csrc/bucket_scan.cu",
+        "K4": ("bucket_scan", "zksnap_tpu_torch/csrc/bucket_scan.cu",
                "zksnap_tpu/curves/fused.py:490"),
+        "K5": ("weighted_suffix", "zksnap_tpu_torch/csrc/reduce.cu",
+               "zksnap_tpu/curves/fused.py:566"),
+        "K6": ("ladder_tree", "zksnap_tpu_torch/csrc/reduce.cu",
+               "zksnap_tpu/curves/fused.py:678"),
     }
-    names = {"K1": "mont_mul", "K2": "mont_addsub", "K3": "point",
-             "K4": "bucket_scan"}
     line = {"kernels": [
-        {"name": names[k], "route": "cuda", "source": meta[k][0],
-         "replaces": meta[k][1], "launches": launches[k],
-         "max_abs_err": results[k]["max_abs_err"], "ms": results[k]["ms"],
-         "plain_ms": results[k]["plain_ms"]} for k in ("K1", "K2", "K3", "K4")]}
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[k],
+         **{key: results[k][key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None}
+        for k, (name, src, rep) in meta.items()]}
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump({**line, "voter_k13": times, "k3_kinds": results["K3_kinds"],
-                   "device_ms": {k: results[k]["device_ms"]
-                                 for k in ("K1", "K2", "K3", "K4")},
-                   "build_s": build_s,
+        json.dump({**line, "voter_k13": k13, "voter_plume_k21": k21,
+                   "launches_k13": launches_k13,
+                   "k3_kinds": results["K3_kinds"],
+                   "shapes": {k: results[k + "_shapes"] for k in meta},
+                   "device_ms": {k: results[k]["device_ms"] for k in meta},
+                   "build_s": build_s, "total_s": time.time() - t_start,
                    "nvidia_smi": smi.stdout.strip()}, f, indent=1)
+    log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,8 @@ HOST = [
     "trace/__init__.py", "trace/context.py", "trace/checker.py",
     "gadgets/__init__.py", "gadgets/bigint.py", "gadgets/paillier_gadget.py",
     "gadgets/poseidon_gadget.py", "gadgets/merkle.py", "gadgets/imt.py",
+    "gadgets/sha256.py", "gadgets/nonnative.py", "gadgets/ecc.py",
+    "gadgets/plume_gadget.py",
     "circuits/__init__.py", "circuits/voter.py",
     "circuits/state_transition.py",
     "natives/__init__.py", "natives/inputs.py", "natives/paillier.py",

@@ -12,9 +12,21 @@ PyTorch port (zksnap_tpu_torch) is held to without rerunning the JAX prover.
       its vk shape, vk digest and instances;
   (d) the compiled `bn254_msm_proj()` of 20 seeded points (duplicates and
       an identity among them) and scalars (zeros, one, n - 1), as an
-      affine point: `msm_inputs` below makes the inputs from the seed.
+      affine point: `msm_inputs` below makes the inputs from the seed;
+  (e) the fused Pippenger reduction on seeded bucket sums, chained as
+      `msm_impl` chains it: `weighted_suffix_fused` (K5), the selection
+      of each window's weighted sum, then `ladder_tree_fused` (K6), for
+      c=3, W=3 with signed digits and c=3, W=2 unsigned (identity
+      buckets, a window of identities, P beside -P, equal buckets);
+      inputs and outputs as canonical projective integers;
+  (f) the voter circuit with PLUME on at k=21 (`VoterFlags()`, inputs
+      from `random.Random(20260817)`, lookup_bits=14, as
+      scripts/prove_voter_tpu.py makes it): synthesis stats, instances
+      and the layout's vk shape (host code only; no keygen).
 
-Run once on the CPU:  python scripts/gen_torch_port_vectors.py
+Run on the CPU:  python scripts/gen_torch_port_vectors.py [part ...]
+with parts among k7, voter_k13, msm, reduce, plume (all by default); the
+parts named replace their entries in the existing file.
 """
 
 import hashlib
@@ -37,6 +49,10 @@ K7_SEED = 20261016
 VOTER_K = 13
 VOTER_SEED = 20260817
 MSM_SEED, MSM_N = 25, 20
+REDUCE_SEED = 26
+REDUCE_CASES = ((3, 3, True), (3, 2, False))  # (c, W, signed)
+PLUME_K, PLUME_LOOKUP_BITS = 21, 14
+PARTS = ("k7", "voter_k13", "msm", "reduce", "plume")
 
 
 def vk_digest(vk) -> str:
@@ -81,6 +97,57 @@ def msm_inputs(seed: int, n: int, curve, affine_point):
     return pts, ks
 
 
+def reduce_inputs(seed: int, W: int, B: int, curve, affine_point):
+    """W*B window-major projective bucket sums (x*l, y*l, l) as canonical
+    ints: window 0 holds an identity (0 : l : 0), P beside -P and two
+    equal buckets; window 1 is all identities; the rest are random."""
+    rng = random.Random(seed)
+    g = affine_point.generator(curve)
+    q = curve.p
+    pool = [rng.randrange(1, curve.n) * g for _ in range(6)]
+    pts = [rng.choice(pool) for _ in range(W * B)]
+    ident = affine_point.identity(curve)
+    pts[0] = ident
+    pts[1], pts[2] = pool[0], -pool[0]
+    pts[3] = pts[4] = pool[1]
+    for b in range(B, 2 * B):
+        pts[b] = ident
+    out = []
+    for pt in pts:
+        lam = rng.randrange(1, q)
+        out.append([0, lam, 0] if pt.is_identity()
+                   else [pt.x * lam % q, pt.y * lam % q, lam])
+    return out
+
+
+def reduce_case(c: int, W: int, signed: bool) -> dict:
+    """K5 then K6 of the JAX package, eagerly on the CPU (the direct
+    path), as msm_impl chains them."""
+    import jax.numpy as jnp
+
+    from zksnap_tpu.curves.fused import ladder_tree_fused, weighted_suffix_fused
+    from zksnap_tpu.curves.native import BN254_G1, AffinePoint
+    from zksnap_tpu.curves.proj import bn254_proj_ops
+
+    ops = bn254_proj_ops()
+    F = ops.F
+    B = (1 << (c - 1)) if signed else (1 << c)
+    rows = reduce_inputs(REDUCE_SEED + c * 100 + W, W, B, BN254_G1,
+                         AffinePoint)
+    flat = tuple(F.to_mont([r[i] for r in rows]) for i in range(3))
+    with jax.disable_jit():
+        s2 = weighted_suffix_fused(flat, B, F.p, int(F.n0), b3=ops.b3)
+        sel = jnp.arange(W) * B + (0 if signed else 1)
+        t = ladder_tree_fused(tuple(a[sel] for a in s2), c, W, F.p,
+                              int(F.n0), b3=ops.b3)
+    s2_ints = [F.from_mont(a) for a in s2]
+    return {"c": c, "W": W, "B": B, "signed": signed,
+            "inputs": [[str(v) for v in r] for r in rows],
+            "s2": [[str(s2_ints[i][j]) for i in range(3)]
+                   for j in range(W * B)],
+            "ladder": [str(F.from_mont(a)) for a in t]}
+
+
 def vk_shape(vk) -> dict:
     return {"n_advice": vk.n_advice, "n_lookup": vk.n_lookup,
             "n_perm": vk.n_perm, "n_z": vk.n_z, "usable": vk.usable,
@@ -88,15 +155,27 @@ def vk_shape(vk) -> dict:
 
 
 def main():
+    parts = sys.argv[1:] or list(PARTS)
+    assert set(parts) <= set(PARTS), parts
+    path = os.path.join("tests", "vectors", "torch_port_v1.json")
+    out = {"version": 1}
+    if os.path.exists(path):
+        with open(path) as f:
+            out = json.load(f)
+    for part in parts:
+        t0 = time.time()
+        out.update(globals()[f"part_{part}"]())
+        print(f"{part} done in {time.time() - t0:.1f}s", flush=True)
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"wrote {path}")
+
+
+def part_k7() -> dict:
     from gen_protocol_vectors import build_fixed_circuit
 
-    from zksnap_tpu.circuits.voter import VoterFlags, voter_circuit
-    from zksnap_tpu.natives import generate_random_voter_circuit_inputs
     from zksnap_tpu.prover.plonk import keygen, prove, verify
     from zksnap_tpu.prover.srs import gen_srs
-    from zksnap_tpu.trace import Context, check
-
-    out = {"version": 1}
 
     srs = gen_srs(7)
     pk = keygen(build_fixed_circuit(), 7, srs)
@@ -109,16 +188,21 @@ def main():
     finally:
         secrets.randbelow = saved
     assert verify(pk.vk, srs.g2, srs.tau_g2, instances, proof)
-    out["seeded_proof_k7"] = {
+    return {"seeded_proof_k7": {
         "k": 7, "srs_seed": "dev", "rng_seed": K7_SEED,
         "instances": [str(v) for v in instances],
         "vk_sha256": vk_digest(pk.vk),
         "proof_hex": proof.hex(),
-    }
-    out["srs_k7"] = {"k": 7, "srs_seed": "dev", "sha256": srs_sha256(7)}
-    print(f"k=7 seeded proof: {len(proof)} bytes", flush=True)
+    }, "srs_k7": {"k": 7, "srs_seed": "dev", "sha256": srs_sha256(7)}}
 
-    t0 = time.time()
+
+def part_voter_k13() -> dict:
+    from zksnap_tpu.circuits.voter import VoterFlags, voter_circuit
+    from zksnap_tpu.natives import generate_random_voter_circuit_inputs
+    from zksnap_tpu.prover.plonk import keygen
+    from zksnap_tpu.prover.srs import gen_srs
+    from zksnap_tpu.trace import Context, check
+
     inp = generate_random_voter_circuit_inputs(random.Random(VOTER_SEED))
     ctx = Context(lookup_bits=VOTER_K - 1)
     pub = []
@@ -128,7 +212,7 @@ def main():
     stats = ctx.stats()
     srs = gen_srs(VOTER_K)
     pk = keygen(ctx, VOTER_K, srs)
-    out["voter_k13"] = {
+    return {"voter_k13": {
         "k": VOTER_K, "srs_seed": "dev", "inputs_seed": VOTER_SEED,
         "lookup_bits": VOTER_K - 1, "check_plume": False,
         "stats": {k_: int(v) for k_, v in stats.items()
@@ -136,15 +220,15 @@ def main():
         "instances": [str(v) for v in inst],
         "vk_shape": vk_shape(pk.vk),
         "vk_sha256": vk_digest(pk.vk),
-    }
-    print(f"voter k=13 keygen done in {time.time() - t0:.1f}s", flush=True)
+    }}
 
+
+def part_msm() -> dict:
     from zksnap_tpu.curves.native import BN254_G1, AffinePoint
     from zksnap_tpu.curves.proj import bn254_proj_ops
     from zksnap_tpu.fields import ints_to_limbs
     from zksnap_tpu.msm.pippenger import bn254_msm_proj
 
-    t0 = time.time()
     pts, ks = msm_inputs(MSM_SEED, MSM_N, BN254_G1, AffinePoint)
     ops = bn254_proj_ops()
     r = bn254_msm_proj()(ops.from_affine_host(pts), ints_to_limbs(ks))
@@ -153,14 +237,42 @@ def main():
     for k, p in zip(ks, pts):
         want = want + k * p
     assert got == want
-    out["msm_proj"] = {"seed": MSM_SEED, "n": MSM_N,
-                       "x": hex(got.x), "y": hex(got.y)}
-    print(f"msm done in {time.time() - t0:.1f}s", flush=True)
+    return {"msm_proj": {"seed": MSM_SEED, "n": MSM_N,
+                         "x": hex(got.x), "y": hex(got.y)}}
 
-    path = os.path.join("tests", "vectors", "torch_port_v1.json")
-    with open(path, "w") as f:
-        json.dump(out, f, indent=1)
-    print(f"wrote {path}")
+
+def part_reduce() -> dict:
+    return {"fused_reduce": [reduce_case(*case) for case in REDUCE_CASES]}
+
+
+def part_plume() -> dict:
+    from zksnap_tpu.circuits.voter import (VoterFlags, expected_instances,
+                                           voter_circuit)
+    from zksnap_tpu.natives import generate_random_voter_circuit_inputs
+    from zksnap_tpu.prover.keygen import (PERM_CHUNK, layout_circuit,
+                                          quotient_ext_log)
+    from zksnap_tpu.trace import Context, check
+
+    inp = generate_random_voter_circuit_inputs(random.Random(VOTER_SEED))
+    ctx = Context(lookup_bits=PLUME_LOOKUP_BITS)
+    pub = []
+    voter_circuit(ctx, inp, pub, VoterFlags())
+    inst = [c.value for c in pub]
+    assert inst == expected_instances(inp)
+    check(ctx, inst)
+    lay = layout_circuit(ctx, PLUME_K)
+    n_perm = len(lay.perm_columns)
+    return {"voter_plume_k21": {
+        "k": PLUME_K, "srs_seed": "dev", "inputs_seed": VOTER_SEED,
+        "lookup_bits": PLUME_LOOKUP_BITS, "check_plume": True,
+        "stats": {k_: int(v) for k_, v in ctx.stats().items()
+                  if isinstance(v, int)},
+        "instances": [str(v) for v in inst],
+        "vk_shape": {"n_advice": lay.n_advice, "n_lookup": lay.n_lookup,
+                     "n_perm": n_perm, "n_z": -(-n_perm // PERM_CHUNK),
+                     "usable": lay.usable,
+                     "ext_log": quotient_ext_log(lay.n_lookup)},
+    }}
 
 
 if __name__ == "__main__":

@@ -4,7 +4,9 @@ Each module of zksnap_tpu_torch whose first line reads "# Copy of
 zksnap_tpu/<path>" holds the JAX module's functions and classes
 unchanged (`ast.dump` equal, import lines aside); a "(host parts only)"
 copy leaves out exactly the device parts named below.  The host verifier
-at the end of the port's prover/plonk.py is compared the same way.  In a
+at the end of the port's prover/plonk.py is compared the same way, but
+for its instance commitment (held to the JAX one by value in
+test_torch_prover.py).  In a
 fresh interpreter where `import jax` fails, the port imports and
 synthesises and lays out the voter circuit at k=13.
 """
@@ -31,11 +33,12 @@ DEVICE_ONLY = {
     "hash/__init__.py": set(),
 }
 # the host verifier copied into the port's prover/plonk.py, with the
-# helpers it shares with the prover
+# helpers it shares with the prover.  `_instance_commitment` is left out:
+# the port's takes its Lagrange points from `srs.lagrange_prefix` (no
+# device, no 2^k SRS), and test_torch_prover.py holds it to the JAX one
 VERIFIER = ("verify", "verify_succinct", "_verify_succinct",
-            "_instance_commitment_cache", "_instance_commitment",
-            "_eval_instance", "_eval_points", "_query_plan", "_perm_chunks",
-            "VerifyingKey")
+            "_instance_commitment_cache", "_eval_instance", "_eval_points",
+            "_query_plan", "_perm_chunks", "VerifyingKey")
 
 
 def _copies():

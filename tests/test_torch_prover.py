@@ -32,7 +32,8 @@ from zksnap_tpu.prover import srs as jsrs
 from zksnap_tpu.prover.keygen import Layout as JLayout
 from zksnap_tpu_torch.prover import plonk
 from zksnap_tpu_torch.prover.convert import pk_from_numpy, srs_from_numpy
-from zksnap_tpu_torch.prover.srs import gen_srs, srs_cache_path
+from zksnap_tpu_torch.prover.srs import (gen_srs, srs_cache_path,
+                                         srs_from_arrays)
 
 torch.set_num_threads(1)
 
@@ -50,8 +51,9 @@ def port(tmp_path_factory):
     """The port's SRS (made here, in a fresh directory), keygen of the
     frozen circuit and one proof seeded as the frozen JAX proof."""
     cache = str(tmp_path_factory.mktemp("srs"))
-    srs = gen_srs(7, cache_dir=cache)
-    pk = plonk.keygen(chip_smoke.build_fixed_circuit(), 7, srs)
+    srs = gen_srs(7, cache_dir=cache, device="cpu")
+    pk = plonk.keygen(chip_smoke.build_fixed_circuit(), 7, srs,
+                      device="cpu")
     v = _vectors("torch_port_v1.json")["seeded_proof_k7"]
     inst = [int(x) for x in v["instances"]]
     proof = plonk.prove(pk, inst, random.Random(v["rng_seed"]))
@@ -109,7 +111,8 @@ def test_srs_matches_jax(port):
         h.update(np.ascontiguousarray(d[name]).tobytes())
     assert h.hexdigest() == v["sha256"]
     srs = port["srs"]
-    again = srs_from_numpy({k: d[k] for k in ARRAYS}, srs.tau_g2, srs.g2)
+    again = srs_from_numpy({k: d[k] for k in ARRAYS}, srs.tau_g2, srs.g2,
+                           device="cpu")
     for a, b in ((again.g1, srs.g1), (again.g1_lagrange, srs.g1_lagrange)):
         for u, w in ((a.x, b.x), (a.y, b.y), (a.z, b.z)):
             assert torch.equal(u, w)
@@ -118,7 +121,7 @@ def test_srs_matches_jax(port):
     tau = jsrs._tau_from_seed(b"dev")
     j_tau_g2 = jpairing.g2_mul(jpairing.G2_GEN, tau)
     from_jax = srs_from_numpy({k: d[k] for k in ARRAYS}, j_tau_g2,
-                              jpairing.G2_GEN)
+                              jpairing.G2_GEN, device="cpu")
     assert (from_jax.tau_g2, from_jax.g2) == (srs.tau_g2, srs.g2)
 
 
@@ -172,6 +175,64 @@ def test_bad_proofs_rejected(port, jax_verifier, how):
     assert not plonk.verify(vk, srs.g2, srs.tau_g2, inst, proof)
 
 
+def test_verify_without_srs_in_memory(port, monkeypatch):
+    """A verifier in a process that holds no SRS (a fresh host, no card)
+    makes the instance commitment's few Lagrange points on the host: the
+    same points as the SRS's, and the proof verifies."""
+    from zksnap_tpu_torch.curves.jacobian import JacPoint, bn254_ops
+    from zksnap_tpu_torch.prover import srs as srs_mod
+
+    lag = port["srs"].g1_lagrange
+    want = bn254_ops().to_affine_host(JacPoint(lag.x[:3], lag.y[:3],
+                                               lag.z[:3]))
+    monkeypatch.setattr(srs_mod, "_MEMO", {})
+    assert srs_mod.lagrange_prefix(7, 3) == want
+    plonk._instance_commitment_cache.cache_clear()
+    try:
+        srs, vk = port["srs"], port["pk"].vk
+        assert plonk.verify(vk, srs.g2, srs.tau_g2, port["inst"],
+                            port["proof"])
+        bad = bytearray(port["proof"])
+        bad[100] ^= 0x10
+        assert not plonk.verify(vk, srs.g2, srs.tau_g2, port["inst"],
+                                bytes(bad))
+        assert srs_mod._MEMO == {}
+    finally:
+        plonk._instance_commitment_cache.cache_clear()
+
+
+@pytest.mark.parametrize("n_inst", [1, 3, 8])
+def test_instance_commitment_matches_jax(port, jax_verifier, monkeypatch,
+                                         n_inst):
+    """The port's instance commitment, its Lagrange points made on the
+    host (no SRS in memory), equals the JAX verifier's, whose points come
+    from its SRS, on seeded instances."""
+    from zksnap_tpu_torch.prover import srs as srs_mod
+
+    rng = random.Random(n_inst)
+    inst = [rng.randrange(plonk.P) for _ in range(n_inst)]
+    want = jplonk._instance_commitment(port["pk"].vk, inst)
+    monkeypatch.setattr(srs_mod, "_MEMO", {})
+    plonk._instance_commitment_cache.cache_clear()
+    try:
+        got = plonk._instance_commitment(port["pk"].vk, inst)
+    finally:
+        plonk._instance_commitment_cache.cache_clear()
+    assert not want.is_identity()
+    assert (got.x, got.y) == (want.x, want.y)
+
+
+@pytest.mark.parametrize("fn", [gen_srs, srs_from_arrays, srs_from_numpy,
+                                plonk.keygen],
+                         ids=lambda f: f.__name__)
+def test_entry_points_default_to_the_card(fn):
+    """The SRS and keygen entry points run on the CUDA device unless the
+    caller names another (the CPU tests name the CPU)."""
+    import inspect
+
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
 def test_pk_from_numpy_round_trip(port):
     """A key carried across as a JAX `ProvingKey` carries it: fixed
     coefficients as the JAX package keeps them at rest (uint16 limbs),
@@ -217,8 +278,8 @@ def test_voter_k13_proof():
     inst = [c.value for c in pub]
     check(ctx, inst)
     assert [str(x) for x in inst] == v["instances"]
-    srs = gen_srs(v["k"])
-    pk = plonk.keygen(ctx, v["k"], srs)
+    srs = gen_srs(v["k"], device="cpu")
+    pk = plonk.keygen(ctx, v["k"], srs, device="cpu")
     assert {k: getattr(pk.vk, k) for k in v["vk_shape"]} == v["vk_shape"]
     assert chip_smoke.vk_digest(pk.vk) == v["vk_sha256"]
     proof = plonk.prove(pk, inst, random.Random(1))

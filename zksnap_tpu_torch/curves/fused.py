@@ -1,5 +1,5 @@
-"""Point kernel K3 and bucket-scan kernel K4 (PyTorch port of
-zksnap_tpu/curves/fused.py).
+"""Point kernel K3, bucket-scan kernel K4 and the fused Pippenger
+reduction kernels K5 and K6 (PyTorch port of zksnap_tpu/curves/fused.py).
 
 `point(kind, arrays, p, b3)` runs one complete group operation per
 element, for six kinds:
@@ -14,11 +14,16 @@ element, for six kinds:
 loop: a segmented running pmadd (madd for b3 == 0) down M lanes of K
 steps, emitting every step's partial sum.
 
-Both dispatch on the tensor's device: CUDA launches the hand-written
-kernel (csrc/point.cu, csrc/bucket_scan.cu), CPU runs the plain version
-below, which evaluates the same formula bodies with the plain field ops
-(all values canonical, so the two agree bit for bit).  `point.launches`
-and `bucket_scan.launches` count kernel launches.
+`weighted_suffix(flat, B, p, b3)` and `ladder_tree(wsums, c, W, p, b3)`
+are the post-scan stages of Pippenger: the window-local double suffix
+of the bucket sums, and the masked doubling ladder plus suffix tree that
+combines the windows.
+
+All four dispatch on the tensor's device: CUDA launches the hand-written
+kernel (csrc/point.cu, csrc/bucket_scan.cu, csrc/reduce.cu), CPU runs the
+plain version below, which evaluates the same formula bodies with the
+plain field ops (all values canonical, so the two agree bit for bit).
+Each wrapper's `.launches` counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -270,11 +275,16 @@ def point(kind: str, arrays, p: int, b3: int = 0):
 point.launches = 0
 
 
+def _zero_one_zero(n: int, p: int, device):
+    """n rows of (0, 1, 0) in Montgomery form: x, y and z limb tensors."""
+    one = _mont_const(p, 1, device).expand(n, N_LIMBS)
+    zero = torch.zeros((n, N_LIMBS), dtype=torch.int32, device=device)
+    return zero, one, zero
+
+
 def _identity_rows(M: int, p: int, b3: int, device):
-    one = torch.as_tensor(
-        [((1 << 256) % p >> (16 * i)) & 0xFFFF for i in range(N_LIMBS)],
-        dtype=torch.int32, device=device).expand(M, N_LIMBS)
-    zero = torch.zeros((M, N_LIMBS), dtype=torch.int32, device=device)
+    """M identities: RCB (0 : 1 : 0) for b3 != 0, Jacobian (1 : 1 : 0)."""
+    zero, one, _ = _zero_one_zero(M, p, device)
     return (zero if b3 else one), one, zero
 
 
@@ -326,3 +336,121 @@ def bucket_scan(pts, flags, M: int, K: int, p: int, b3: int = 0):
 
 
 bucket_scan.launches = 0
+
+
+# -- the fused Pippenger reduction: K5 and K6 --------------------------------
+#
+# Lanes that are masked out or padded hold (0 : 1 : 0) in both coordinate
+# systems, as the JAX kernels write them: the RCB formulas are complete
+# only for valid projective points, and z = 0 is the Jacobian identity.
+
+LADDER_LANES = 128
+
+
+def _suffix_rounds(F, st, B: int, b3: int):
+    """Hillis-Steele suffix sum within each window of B lanes:
+    log2(B) rounds of st[i] += st[i + d] (window-local, masked)."""
+    kind = "padd" if b3 else "add"
+    total = st[0].shape[0]
+    lane_b = torch.arange(total, device=st[0].device) % B
+    ident = _zero_one_zero(total, F.p, st[0].device)
+    rounds = max(B.bit_length() - 1, 1) if B > 1 else 0
+    for r in range(rounds):
+        d = 1 << r
+        valid = (lane_b + d < B)[:, None]
+        sh = tuple(torch.where(valid, torch.roll(a, -d, 0), i)
+                   for a, i in zip(st, ident))
+        st = _run_body(kind, F, tuple(st) + sh, b3)
+    return tuple(st)
+
+
+def weighted_suffix_plain(flat, B: int, p: int, b3: int = 0):
+    """The plain PyTorch version of K5: two window-local suffix scans."""
+    F = _PlainField(p)
+    return _suffix_rounds(F, _suffix_rounds(F, tuple(flat), B, b3), B, b3)
+
+
+def weighted_suffix(flat, B: int, p: int, b3: int = 0):
+    """Window-local double suffix of the bucket sums (kernel K5).
+
+    flat: (x, y, z) each [W*B, 16], window-major bucket sums.  Returns
+    (x, y, z) each [W*B, 16] with
+    s2[w*B + b] = sum_{b' >= b} (b' - b + 1) * S[w, b'].
+    Projective (RCB padd) for b3 != 0, Jacobian add for b3 == 0."""
+    dev = _device_of(list(flat))
+    if dev.type == "cpu":
+        return weighted_suffix_plain(flat, B, p, b3)
+    from .. import kernels
+
+    total = flat[0].shape[0]
+    if B < 1 or total % B:
+        raise ValueError(f"{total} buckets are not whole windows of {B}")
+    ins = [a.contiguous() for a in flat]
+    outs = [torch.empty((total, N_LIMBS), dtype=torch.int32, device=dev)
+            for _ in range(6)]  # the result, then the round scratch
+    rounds = max(B.bit_length() - 1, 1) if B > 1 else 0
+    err = kernels.library().zk_weighted_suffix(
+        *[kernels.rows(a, total) for a in ins],
+        *[kernels.rows(o, total) for o in outs], total, B, rounds,
+        1 if b3 else 0, int(b3), kernels.mod_ptr(p),
+        kernels.stream_of(outs[0]))
+    kernels.check(err, "zk_weighted_suffix")
+    weighted_suffix.launches += 1
+    return tuple(outs[:3])
+
+
+weighted_suffix.launches = 0
+
+
+def _ladder_lanes(wsums, W: int, p: int):
+    """[W, 16] window sums -> [128, 16] lanes, (0 : 1 : 0) past W."""
+    if not 1 <= W <= LADDER_LANES or wsums[0].shape[0] != W:
+        raise ValueError(f"ladder of {W} windows over {LADDER_LANES} lanes")
+    pad = _zero_one_zero(LADDER_LANES - W, p, wsums[0].device)
+    return tuple(torch.cat([a, b]) for a, b in zip(wsums, pad))
+
+
+def ladder_tree_plain(wsums, c: int, W: int, p: int, b3: int = 0):
+    """The plain PyTorch version of K6."""
+    F = _PlainField(p)
+    st = _ladder_lanes(wsums, W, p)
+    widx = torch.arange(LADDER_LANES, device=st[0].device)
+    for i in range(c * (W - 1)):
+        dbl = _run_body("pdbl" if b3 else "dbl", F, st, b3)
+        need = ((widx * c) > i)[:, None]
+        st = tuple(torch.where(need, a, b) for a, b in zip(dbl, st))
+    ident = _zero_one_zero(LADDER_LANES, p, st[0].device)
+    for r in range(7):
+        d = 1 << r
+        valid = ((widx + d) < LADDER_LANES)[:, None]
+        sh = tuple(torch.where(valid, torch.roll(a, -d, 0), i)
+                   for a, i in zip(st, ident))
+        st = _run_body("padd" if b3 else "add", F, st + sh, b3)
+    return tuple(a[0] for a in st)
+
+
+def ladder_tree(wsums, c: int, W: int, p: int, b3: int = 0):
+    """Window combine T = sum_w 2^(c*w) S_w (kernel K6).
+
+    wsums: (x, y, z) each [W, 16].  Lane w of 128 doubles while
+    i < c*w for i < c*(W-1), then a 7-round suffix tree sums the lanes.
+    Returns the single combined point, (x, y, z) each [16]."""
+    dev = _device_of(list(wsums))
+    if dev.type == "cpu":
+        return ladder_tree_plain(wsums, c, W, p, b3)
+    from .. import kernels
+
+    ins = [a.contiguous() for a in _ladder_lanes(wsums, W, p)]
+    outs = [torch.empty((LADDER_LANES, N_LIMBS), dtype=torch.int32,
+                        device=dev) for _ in range(3)]
+    err = kernels.library().zk_ladder_tree(
+        *[kernels.rows(a, LADDER_LANES) for a in ins],
+        *[kernels.rows(o, LADDER_LANES) for o in outs], c, W,
+        1 if b3 else 0, int(b3), kernels.mod_ptr(p),
+        kernels.stream_of(outs[0]))
+    kernels.check(err, "zk_ladder_tree")
+    ladder_tree.launches += 1
+    return tuple(o[0] for o in outs)
+
+
+ladder_tree.launches = 0

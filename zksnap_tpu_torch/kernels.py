@@ -1,10 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources under `csrc/` compile with one `nvcc` call into a shared
-library with a plain C interface, `build/torch_kernels/
-libzksnap_kernels_<srchash>.so` at the repository root, on first use;
-`ctypes` loads it.  Every C entry launches on the caller's stream and
-returns `cudaGetLastError()`; `check` raises if that is not 0.
+The sources under `csrc/` compile on first use, one `nvcc` process for
+each source, all started together, and link into a shared library with a
+plain C interface, `build/torch_kernels/libzksnap_kernels_<srchash>.so`
+at the repository root; `ctypes` loads it.  Every C entry launches on
+the caller's stream and returns `cudaGetLastError()`; `check` raises if
+that is not 0.
 
 Nothing here runs at import time: the CPU tests import every module, and
 a machine without `nvcc` never reaches `library()`.
@@ -20,12 +21,12 @@ import shutil
 import subprocess
 
 CSRC = os.path.join(os.path.dirname(__file__), "csrc")
-SOURCES = ("mont.cu", "point.cu", "bucket_scan.cu")
+SOURCES = ("mont.cu", "point.cu", "bucket_scan.cu", "reduce.cu")
 HEADERS = ("field.cuh", "point.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(__file__), "..", "build",
                          "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -35,6 +36,8 @@ _SIGNATURES = {
     "zk_mont_addsub": [_P, _P, _P, _LL, _LL, _LL, _I, _P, _P],
     "zk_point": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _P, _P],
     "zk_bucket_scan": [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P, _P],
+    "zk_weighted_suffix": [_P] * 9 + [_LL, _LL, _I, _I, _I, _P, _P],
+    "zk_ladder_tree": [_P] * 6 + [_I, _I, _I, _I, _P, _P],
 }
 
 
@@ -60,23 +63,39 @@ def _nvcc() -> str:
 
 def build(build_dir: str = BUILD_DIR) -> str:
     """Compile the kernels if this source hash has no library yet; returns
-    the library path.  The compiler's output (ptxas register counts
-    included) is kept beside it as build_<hash>.log."""
+    the library path.  Every source compiles in its own `nvcc` process,
+    all at once, then one `nvcc -shared` links them.  The compilers'
+    output (ptxas register counts included) is kept beside the library as
+    build_<hash>.log."""
     build_dir = os.path.abspath(build_dir)
     tag = source_hash()
     lib = os.path.join(build_dir, f"libzksnap_kernels_{tag}.so")
     if os.path.exists(lib):
         return lib
     os.makedirs(build_dir, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[os.path.join(CSRC, s) for s in SOURCES]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    stem = f"{lib}.{os.getpid()}"
+    objs = [f"{stem}.{s}.o" for s in SOURCES]
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)]
+            for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    runs = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+    link = [_nvcc(), "-shared", "-o", f"{stem}.tmp", *objs]
+    if all(rc == 0 for _, _, rc in runs):
+        res = subprocess.run(link, capture_output=True, text=True)
+        runs.append((link, res.stdout + res.stderr, res.returncode))
     with open(os.path.join(build_dir, f"build_{tag}.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, lib)
+        for cmd, out, _ in runs:
+            f.write(" ".join(cmd) + "\n" + out)
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    failed = [(cmd, out, rc) for cmd, out, rc in runs if rc != 0]
+    if failed:
+        cmd, out, rc = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+    os.replace(f"{stem}.tmp", lib)
     return lib
 
 

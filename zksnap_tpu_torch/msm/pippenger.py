@@ -8,15 +8,21 @@ a log2(M) lane-carry scan for segments that cross lanes, a gather of the
 segment tails, the split weighted bucket reduction, and a masked doubling
 ladder that combines the windows.  Every group operation is a launch of
 kernel K3 (curves/fused.py) on a CUDA tensor.
+
+With ZKSNAP_TPU_FUSED_REDUCE=1 in the environment (the JAX package's own
+switch, off by default), a projective MSM takes the fused post-scan
+stage instead: one double-suffix kernel (K5) for the weighted bucket
+reduction and one ladder-and-tree kernel (K6) for the window combine.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import torch
 
-from ..curves.fused import bucket_scan
+from ..curves.fused import bucket_scan, ladder_tree, weighted_suffix
 from ..curves.jacobian import CurveOps, JacPoint
 from ..fields.common import N_LIMBS
 
@@ -277,6 +283,13 @@ def msm_impl(ops: CurveOps, pts: JacPoint, scalars, c: int, n_windows: int,
                                             lanes=lanes))
     flat = JacPoint(*(torch.cat([getattr(p_, a) for p_ in parts])
                       for a in ("x", "y", "z")))
+    if ops.b3 and os.environ.get("ZKSNAP_TPU_FUSED_REDUCE", "0") == "1":
+        # fused post-scan stage: the double suffix (K5), then the ladder
+        # and tree (K6) over each window's weighted sum
+        s2 = weighted_suffix((flat.x, flat.y, flat.z), B, ops.F.p, ops.b3)
+        sel = torch.arange(W, device=dev) * B + (0 if signed else 1)
+        return JacPoint(*ladder_tree(tuple(a[sel] for a in s2), c, W,
+                                     ops.F.p, ops.b3))
     buckets = JacPoint(*(a.reshape(W, B, N_LIMBS)
                          for a in (flat.x, flat.y, flat.z)))
     wsums = _weighted_bucket_reduce(

@@ -25,7 +25,7 @@ def _g2(pt):
     return (pr.Fq2(int(x.a), int(x.b)), pr.Fq2(int(y.a), int(y.b)))
 
 
-def srs_from_numpy(arrays: dict, tau_g2, g2, device="cpu") -> SRS:
+def srs_from_numpy(arrays: dict, tau_g2, g2, device="cuda") -> SRS:
     """arrays: x, y, z, lx, ly, lz, each [n, 16] uint32 (the .npz format
     of both packages); tau_g2, g2: G2 points of either package."""
     return srs_from_arrays(arrays, _g2(tau_g2), _g2(g2), device)

@@ -16,7 +16,10 @@ With the same seeded source on both sides, the port and the JAX package
 same proof bytes.
 
 The host verifier at the end of this file is a copy of the JAX package's
-(plonk.py:1041-1248); it goes once zksnap_tpu imports jax lazily.
+(plonk.py:1041-1248); it goes once zksnap_tpu imports jax lazily.  One
+function differs: `_instance_commitment` takes its few Lagrange points
+from `srs.lagrange_prefix` instead of the whole SRS by k, so a verifier
+needs no device.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..curves.jacobian import JacPoint, bn254_ops
+from ..curves.jacobian import bn254_ops
 from ..curves.native import AffinePoint, BN254_G1
 from ..fields.common import ints_to_limbs, ints_to_limbs_fast
 from ..fields.field import bn254_fr
@@ -49,7 +52,7 @@ from .poly_device import (
     rlc_list,
     to_device_poly,
 )
-from .srs import SRS, gen_srs
+from .srs import SRS, gen_srs, lagrange_prefix
 from .transcript import Transcript
 
 FR = bn254_fr()
@@ -96,9 +99,9 @@ def _sigma_values_dev(layout: Layout, device):
 
 
 def keygen(ctx: Context, k: int, srs: SRS | None = None,
-           device="cpu") -> ProvingKey:
-    """Layout + pk/vk generation on the device of `srs` (or `device` when
-    the SRS is made here)."""
+           device="cuda") -> ProvingKey:
+    """Layout + pk/vk generation on the device of `srs` (or `device`, the
+    card unless the caller names the CPU, when the SRS is made here)."""
     from .keygen import quotient_ext_log
     from ..poly.domain import domain
 
@@ -744,15 +747,8 @@ def _instance_commitment(vk: VerifyingKey, instances):
     key = (vk.k, tuple(v % P for v in instances))
     cache = _instance_commitment_cache()
     if key not in cache:
-        srs = gen_srs(vk.k)
-        ops = bn254_ops()
-        pts = ops.to_affine_host(JacPoint(
-            srs.g1_lagrange.x[: len(instances)],
-            srs.g1_lagrange.y[: len(instances)],
-            srs.g1_lagrange.z[: len(instances)],
-        )) if instances else []
         acc = AffinePoint.identity(BN254_G1)
-        for v, pt in zip(instances, pts):
+        for v, pt in zip(instances, lagrange_prefix(vk.k, len(instances))):
             acc = acc + (v % P) * pt
         cache[key] = acc
     return cache[key]

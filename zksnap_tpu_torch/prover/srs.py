@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..curves.jacobian import JacPoint, bn254_ops
-from ..curves.native import BN254_G1
+from ..curves.native import BN254_G1, AffinePoint
 from ..fields.common import ints_to_limbs
 from ..fields.field import bn254_fr
 from . import pairing as pr
@@ -55,16 +55,42 @@ _MEMO: dict = {}
 
 
 def gen_srs(k: int, seed: bytes = b"dev", cache_dir: str | None = None,
-            device="cpu") -> SRS:
+            device="cuda") -> SRS:
     """Dev SRS for domain size 2^k, cached on disk in `cache_dir` (default:
-    build/ at the repository root) and built on `device` when no file is
-    there.  The SRS is a function of (k, seed) alone, so one per (k, seed)
-    is kept in memory and later calls return it, on the device it was
-    made on (the host verifier asks for it by k only)."""
+    build/ at the repository root) and built on `device` (the card unless
+    the caller names the CPU) when no file is there.  The SRS is a
+    function of (k, seed) alone, so one per (k, seed) is kept in memory
+    and later calls return it, on the device it was made on, whatever
+    device they name."""
     key = (k, seed)
     if key not in _MEMO:
         _MEMO[key] = _gen_srs(k, seed, cache_dir, torch.device(device))
     return _MEMO[key]
+
+
+def lagrange_prefix(k: int, m: int, seed: bytes = b"dev") -> list:
+    """[L_i(tau)]G1 for i < m as host points, for the host verifier's
+    instance commitment: taken from the SRS kept in memory when there is
+    one for (k, seed), else m scalar multiplications on the host, so that
+    a verifier needs neither a device nor the whole 2^k set-up."""
+    srs = _MEMO.get((k, seed))
+    if srs is not None:
+        lag = srs.g1_lagrange
+        return bn254_ops().to_affine_host(JacPoint(
+            lag.x[:m], lag.y[:m], lag.z[:m])) if m else []
+    from ..poly.domain import domain
+
+    p = bn254_fr().p
+    tau = _tau_from_seed(seed)
+    n, omega = 1 << k, domain(k).omega
+    # L_i(tau) = w^i (tau^n - 1) / (n (tau - w^i)), as _gen_srs makes them
+    zn = (pow(tau, n, p) - 1) * pow(n, -1, p) % p
+    g = AffinePoint.generator(BN254_G1)
+    out, w = [], 1
+    for _ in range(m):
+        out.append((w * zn % p * pow(tau - w, -1, p) % p) * g)
+        w = w * omega % p
+    return out
 
 
 def _gen_srs(k: int, seed: bytes, cache_dir, device) -> SRS:
@@ -131,7 +157,7 @@ def _powers_to_points(ops, scalars_int: list[int], device,
                       for a in ("x", "y", "z")))
 
 
-def srs_from_arrays(d: dict, tau_g2, g2, device="cpu") -> SRS:
+def srs_from_arrays(d: dict, tau_g2, g2, device="cuda") -> SRS:
     """SRS from the six [n, 16] arrays of the shared .npz format (x, y, z,
     lx, ly, lz; uint32 or int32, Jacobian), normalised to affine-or-
     identity (z in {0, 1}) as the MSM's mixed adds require."""
