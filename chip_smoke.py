@@ -4,8 +4,9 @@ CUDA GPU and check it: the quickest proof that the port still starts.
     python3 chip_smoke.py
 
 Phases:
-  1. build the six hand-written CUDA kernels from csrc/ (one nvcc for each
-     source, all started together, timed);
+  1. build the eight hand-written CUDA kernels from csrc/ (one nvcc for
+     each source, all started together, timed; ptxas registers and
+     spills logged);
   2. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes, edge cases included, bit-exact, and time both:
      the k=13 path's (n = 8192 field elements and points; the fixed-base
@@ -13,7 +14,12 @@ Phases:
      2^21 rows; padd over 32768 lanes; a variable-base pass of 2 * 2^21
      signed-digit pairs, M = 32768 lanes x K = 128 steps; the fused
      reduction at W = 16 windows of B = 2^15 buckets and c = 16) and
-     K=7's fused reduction (W = 32 windows of 128, c = 8);
+     K=7's fused reduction (W = 32 windows of 128, c = 8); then K7 and
+     K8 through their own entry points (point_add_batch,
+     point_dbl_batch, point_add_staged; the only path that runs them),
+     once each at n = 2^20 with the counts read, then against their plain
+     versions at n = 2^20 and n = 32768, edge cases included, the staged
+     add against the fused one;
   3. K=7 parity with the frozen JAX vectors: the port's keygen gives the
      frozen vk digest, the port's verifier accepts the frozen proof, and
      a second keygen with ZKSNAP_TPU_FUSED_REDUCE=1 (every commit through
@@ -33,16 +39,29 @@ Phases:
      launch counts of K1-K6 over it, each required > 0; one more warm
      proof under torch.profiler; then one 2^21 commit fused and unfused,
      the same point;
-  7. the card's name and power limit, and the kernels' line.
+  7. a ceremony-format SRS at k=15 written, read back (curve, pairing
+     and Lagrange-sum checks) and compared; a corrupted file refused;
+  8. the protocol of scripts/protocol_demo.py at its defaults: two rounds
+     of a voter and a state-transition proof at k=13, keys rebound, each
+     proof folded by RecursionChain, one final pairing;
+  9. the proving service (server.py) in this process: the voter at k=13
+     proved, verified, a tampered proof and an unknown circuit refused;
+ 10. the CLI in child processes: the state-transition circuit at k=15
+     through keygen, prove and verify, its vk digest the frozen JAX
+     digest, a flipped byte making verify exit 1;
+ 11. the card's name and power limit, and the kernels' line.
+
+Every path is driven with the launch counts set to 0 just before it and
+read just after (the CLI's children excepted: their counts are theirs).
 
 Phase 2's per-call times come from CUDA events over repeated calls and
 include the host's launch path; the device time per launch comes from
 the profiler.  Each kernel's bound is the larger of the integer
 operations that its function needs at the H100's INT32 rate and its
 bytes (inputs read once, outputs written once) at 3.35 TB/s.  The
-kernels line gives each kernel at the k=21 path's shape, with that
-path's launches; every shape's numbers go to
-chiprun_out/chip_smoke.json.
+kernels line gives K1-K6 at the k=21 path's shape, with that path's
+launches, and K7, K8 at n = 2^20 with their own path's; every shape's
+numbers go to chiprun_out/chip_smoke.json.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 check fails.  The last line of standard output is
@@ -83,6 +102,8 @@ ADD_OPS = 24
 PADD_OPS = 12 * MUL_OPS + 27 * ADD_OPS
 PMADD_OPS = 11 * MUL_OPS + 21 * ADD_OPS
 PDBL_OPS = 8 * MUL_OPS + 13 * ADD_OPS
+JADD_OPS = 16 * MUL_OPS + 13 * ADD_OPS  # add-2007-bl; P == Q adds a JDBL
+JDBL_OPS = 7 * MUL_OPS + 14 * ADD_OPS
 
 
 def bound(ops: float, nbytes: float) -> dict:
@@ -178,14 +199,18 @@ def device_time(fn) -> tuple[float, dict]:
     return wall, by_name
 
 
-def kernel_device_ms(fn, symbol: str, reps: int = 20):
-    """Device milliseconds per launch of the kernel whose name holds
-    `symbol`, over `reps` calls of fn; None where not measured."""
+def kernel_device_ms(fn, symbols, reps: int = 20, per_call: bool = False):
+    """Device milliseconds of the kernels whose names hold `symbols` (one
+    name or a tuple of names), over `reps` calls of fn: per launch, or
+    with `per_call` their sum per call of fn; None where not measured."""
+    if isinstance(symbols, str):
+        symbols = (symbols,)
     _, by_name = device_time(lambda: [fn() for _ in range(reps)])
-    hits = [v for k, v in by_name.items() if symbol in k]
+    hits = [v for k, v in by_name.items() if any(s in k for s in symbols)]
     if not hits:
         return None
-    return sum(v[1] for v in hits) / sum(v[0] for v in hits)
+    total = sum(v[1] for v in hits)
+    return total / (reps if per_call else sum(v[0] for v in hits))
 
 
 def fmt_ms(ms) -> str:
@@ -534,6 +559,117 @@ def phase2_reduce(dev, rng, results):
                 f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4g} ms")
 
 
+# (tag, n) of K7 and K8: a batch of 2^20 points, and the 32768 lanes of
+# the port's bucket scan
+POINT_SHAPES = (("n2^20", 1 << 20), ("n32768", 32768))
+
+
+def dbl_lanes(P, Q, p: int):
+    """Lanes where the complete Jacobian add needs its doubling fallback:
+    P == Q, neither the identity."""
+    from zksnap_tpu_torch.fields.pallas_mont import mont_mul_plain
+
+    def mul(a, b):
+        return mont_mul_plain(a, b, p)
+
+    z1z1, z2z2 = mul(P[2], P[2]), mul(Q[2], Q[2])
+    same_x = (mul(P[0], z2z2) == mul(Q[0], z1z1)).all(-1)
+    same_y = (mul(mul(P[1], Q[2]), z2z2) == mul(mul(Q[1], P[2]), z1z1)).all(-1)
+    finite = (P[2] != 0).any(-1) & (Q[2] != 0).any(-1)
+    return same_x & same_y & finite
+
+
+def point_batch_inputs(n: int, rng, dev):
+    """(P, Q, lanes where P == Q) of n seeded BN254 points in Jacobian
+    coordinates: rows drawn from 8192 seeded rows, the first eight the
+    edge cases of point_inputs (P = inf, Q = inf, both inf, P = Q,
+    P = -Q, ...)."""
+    from zksnap_tpu_torch.curves.native import BN254_G1
+    from zksnap_tpu_torch.fields import bn254_fq
+
+    Fq = bn254_fq()
+    P, Q, _ = point_inputs(BN254_G1, Fq, 8192, rng, dev, True)
+    gen = torch.Generator().manual_seed(rng.randrange(1 << 31))
+    idx = torch.randint(0, 8192, (n,), generator=gen)
+    idx[:8] = torch.arange(8)
+    idx = idx.to(dev)
+    same = int(dbl_lanes(P, Q, Fq.p)[idx].sum())
+    return tuple(a[idx] for a in P), tuple(a[idx] for a in Q), same
+
+
+def phase_point_batch(dev, rng, results) -> dict:
+    """K8 (point_add_batch, point_dbl_batch) and K7 (point_add_staged)
+    through their public entry points, the only path that runs them:
+    each called once at n = 2^20 with the counts set to 0 just before and
+    read just after (the kernels line's launches); then every form held
+    against its plain version at both shapes, staged against fused, and
+    timed.  Returns the launches of that one call of each."""
+    from zksnap_tpu_torch.curves import pallas_point as pp
+    from zksnap_tpu_torch.fields import bn254_fq
+
+    Fq = bn254_fq()
+    p, n0 = Fq.p, Fq.n0
+    launches = None
+    for tag, n in POINT_SHAPES:
+        P, Q, same = point_batch_inputs(n, rng, dev)
+        # the function's own work: the add, and a dbl on the lanes where
+        # P == Q (the kernels double every lane; that is their cost)
+        add_ops = n * JADD_OPS + same * JDBL_OPS
+        forms = {  # name: (entry point, plain version, kernels, ops, rows)
+            "add": (lambda: pp.point_add_batch(P, Q, p, n0),
+                    lambda: pp.point_add_batch_plain(P, Q, p, n0),
+                    ("jac_add_kernel",), add_ops, 9),
+            "dbl": (lambda: pp.point_dbl_batch(P, p, n0),
+                    lambda: pp.point_dbl_batch_plain(P, p, n0),
+                    ("jac_dbl_kernel",), n * JDBL_OPS, 6),
+            # the plain version and the bound are the add's: the split
+            # changes no value, and the intermediates are the kernel's own
+            # traffic, not the function's
+            "staged": (lambda: pp.point_add_staged(P, Q, p, n0),
+                       lambda: pp.point_add_batch_plain(P, Q, p, n0),
+                       ("staged_add_a_kernel", "jac_dbl_kernel",
+                        "staged_add_b_kernel"), add_ops, 9)}
+        if launches is None:
+            for fn in (pp.point_add_batch, pp.point_dbl_batch,
+                       pp.point_add_staged):
+                fn.launches = 0
+            got = {name: f[0]() for name, f in forms.items()}
+            torch.cuda.synchronize()
+            launches = {"K7": pp.point_add_staged.launches,
+                        "K8": pp.point_add_batch.launches
+                        + pp.point_dbl_batch.launches}
+            log(f"K7/K8 path (one call of each entry point, n={n}): "
+                f"launches {launches}")
+            require(min(launches.values()) > 0, launches)
+        else:
+            got = {name: f[0]() for name, f in forms.items()}
+        require(max_abs_err(got["staged"], got["add"]) == 0,
+                ("K7 staged != K8 add", tag))
+        rows = {}
+        for name, (fn, plain, syms, ops, nrows) in forms.items():
+            want, plain_ms = timed(plain)
+            err = max_abs_err(got[name], want)
+            require(err == 0, ("K7/K8", name, tag, err))
+            del want
+            rows[name] = dict(n=n, max_abs_err=err, plain_ms=plain_ms,
+                              ms=cuda_ms(fn, 20),
+                              device_ms=kernel_device_ms(fn, syms,
+                                                         per_call=True),
+                              **bound(ops, n * nrows * ROW))
+            r = rows[name]
+            log(f"{'K7' if name == 'staged' else 'K8'} {name:6s} bit-exact "
+                f"({tag}): {r['ms']:.4f} ms a call ({fmt_ms(r['device_ms'])}"
+                f" on the device), plain {r['plain_ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4g} ms ({r['bound_by']})")
+        del got
+        log(f"K7/K8 ({tag}): {same} of {n} lanes have P == Q (the add's "
+            "bound counts a dbl on those)")
+        shape_result(results, "K8", tag, **rows["add"], dbl=rows["dbl"],
+                     p_eq_q=same)
+        shape_result(results, "K7", tag, **rows["staged"], p_eq_q=same)
+    return launches
+
+
 def phase3(dev, srs_dir):
     from zksnap_tpu_torch.curves.fused import ladder_tree, weighted_suffix
     from zksnap_tpu_torch.prover.plonk import keygen, verify
@@ -757,6 +893,249 @@ def profile_prove(pk, inst, times):
            if top else "no device activity seen: not measured"))
 
 
+def phase_ceremony_srs(dev, work, times, k: int = 15):
+    """A ceremony-format SRS at k=15: the dev SRS written by save_srs,
+    read back by load_srs (curve checks on the card, the G2 checks, the
+    pairing sanity check and the Lagrange-sum tree of K3 adds), the same
+    points; a file with one flipped G1 byte is refused."""
+    from zksnap_tpu_torch.prover.srs import (_lagrange_sum_check, gen_srs,
+                                             load_srs, save_srs,
+                                             srs_sanity_check)
+
+    t0 = time.time()
+    srs = gen_srs(k, cache_dir=work, device=dev)
+    torch.cuda.synchronize()
+    times["gen_s"] = time.time() - t0
+    path = os.path.join(work, f"kzg_bn254_{k}.srs")
+    t0 = time.time()
+    save_srs(srs, path)
+    times["save_s"] = time.time() - t0
+    t0 = time.time()
+    back = load_srs(path, device=dev)
+    torch.cuda.synchronize()
+    times["load_s"] = time.time() - t0
+    require(back.k == k and (back.g2, back.tau_g2) == (srs.g2, srs.tau_g2),
+            "reloaded SRS G2 points differ")
+    for a, b in ((back.g1, srs.g1), (back.g1_lagrange, srs.g1_lagrange)):
+        require(all(torch.equal(u, w) for u, w in (
+            (a.x, b.x), (a.y, b.y), (a.z, b.z))), "reloaded G1 points differ")
+    t0 = time.time()
+    require(srs_sanity_check(back), "pairing sanity check failed")
+    times["sanity_s"] = time.time() - t0
+    t0 = time.time()
+    require(_lagrange_sum_check(back), "Lagrange-sum check failed")
+    torch.cuda.synchronize()
+    times["lagrange_sum_s"] = time.time() - t0
+    with open(path, "rb") as f:
+        data = bytearray(f.read())
+    data[4 + 64 + 3] ^= 1  # x of [tau]G1
+    bad = os.path.join(work, "corrupt.srs")
+    with open(bad, "wb") as f:
+        f.write(bytes(data))
+    try:
+        load_srs(bad, device=dev)
+    except ValueError as e:
+        times["corrupt_error"] = str(e)
+    require("corrupt_error" in times, "a corrupted SRS file was accepted")
+    log(f"ceremony SRS k={k}: {len(data)} bytes; gen {times['gen_s']:.3f} s, "
+        f"save {times['save_s']:.3f} s, load with both checks "
+        f"{times['load_s']:.3f} s (sanity {times['sanity_s']:.3f} s, "
+        f"Lagrange sum {times['lagrange_sum_s']:.3f} s); same points; one "
+        f"flipped G1 byte refused ({times['corrupt_error']})")
+
+
+def phase_protocol(dev, times, rounds: int = 2, k: int = 13):
+    """scripts/protocol_demo.py at its defaults on the port: per round a
+    voter proof (PLUME off) and a state-transition proof, keys made once
+    and rebound, each proof succinctly verified and folded by
+    RecursionChain; one pairing decides the chain."""
+    from zksnap_tpu_torch.circuits.state_transition import (
+        expected_instances as st_expected, state_transition_circuit)
+    from zksnap_tpu_torch.circuits.voter import (
+        VoterFlags, expected_instances as voter_expected, voter_circuit)
+    from zksnap_tpu_torch.natives import generate_wrapper_circuit_input
+    from zksnap_tpu_torch.prover import (RecursionChain, Snark, gen_srs,
+                                         keygen, prove, rebind_witness)
+    from zksnap_tpu_torch.trace import Context, check
+
+    rng = random.Random(20260817)
+    t0 = time.time()
+    voter_inputs, state_inputs = generate_wrapper_circuit_input(rounds, rng)
+    times["inputs_s"] = time.time() - t0
+    srs = gen_srs(k, device=dev)
+    chain = RecursionChain(srs.g2, srs.tau_g2)
+    pks = {}
+    for rnd in range(rounds):
+        t0 = time.time()
+        vctx, vpub = Context(lookup_bits=min(14, k - 1)), []
+        voter_circuit(vctx, voter_inputs[rnd], vpub,
+                      VoterFlags(check_plume=False))
+        check(vctx, voter_expected(voter_inputs[rnd]))
+        sctx, spub = Context(lookup_bits=min(14, k - 1)), []
+        state_transition_circuit(sctx, state_inputs[rnd], spub)
+        check(sctx, st_expected(state_inputs[rnd]))
+        times[f"round{rnd}_witness_s"] = time.time() - t0
+        if not pks:
+            t0 = time.time()
+            pks["voter"] = keygen(vctx, k, srs)
+            pks["state"] = keygen(sctx, k, srs)
+            torch.cuda.synchronize()
+            times["keygen_s"] = time.time() - t0
+            # the circuit's structure does not depend on its inputs
+            with open(os.path.join(VECTORS, "torch_port_v1.json")) as f:
+                want = json.load(f)[f"state_k{k}"]["vk_sha256"]
+            require(vk_digest(pks["state"].vk) == want,
+                    ("protocol state-transition vk digest",
+                     vk_digest(pks["state"].vk), want))
+        vpk = rebind_witness(pks["voter"], vctx)
+        spk = rebind_witness(pks["state"], sctx)
+        vinst, sinst = [c.value for c in vpub], [c.value for c in spub]
+        t0 = time.time()
+        vproof = prove(vpk, vinst)
+        sproof = prove(spk, sinst)
+        torch.cuda.synchronize()
+        times[f"round{rnd}_proofs_s"] = time.time() - t0
+        t0 = time.time()
+        chain.add_round(Snark(vpk.vk, vinst, vproof),
+                        Snark(spk.vk, sinst, sproof))
+        times[f"round{rnd}_accumulate_s"] = time.time() - t0
+        log(f"protocol round {rnd}: witnesses "
+            f"{times[f'round{rnd}_witness_s']:.3f} s, voter + state proofs "
+            f"{times[f'round{rnd}_proofs_s']:.3f} s, accumulated "
+            f"{times[f'round{rnd}_accumulate_s']:.3f} s")
+    t0 = time.time()
+    ok = chain.finalize()
+    times["decide_s"] = time.time() - t0
+    require(ok, "the protocol chain's final pairing failed")
+    log(f"protocol k={k}: {rounds} rounds, {2 * rounds} proofs folded, "
+        f"keygen (voter + state) {times['keygen_s']:.3f} s, the state "
+        f"transition's vk digest equals the frozen JAX one; finalize() True "
+        f"in {times['decide_s']:.3f} s")
+
+
+def _http(url, obj=None):
+    """GET (obj None) or POST obj as JSON: (status, decoded body)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if obj is None else json.dumps(obj).encode()
+    req = urllib.request.Request(url, data,
+                                 {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def phase_server(dev, times):
+    """The proving service in this process on a free port: /health, the
+    voter at k=13 (seed 3) proved and verified, a tampered proof and an
+    unknown circuit refused, and a second (warm) prove."""
+    import threading
+
+    from zksnap_tpu_torch import server
+
+    httpd = server.make_server(0, device=dev)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        code, health = _http(url + "/health")
+        require(code == 200 and health["status"] == "ok", health)
+        t0 = time.time()
+        code, out = _http(url + "/prove", {"circuit": "voter", "k": 13,
+                                           "seed": 3})
+        times["prove_first_s"] = time.time() - t0  # keygen included
+        require(code == 200 and len(out["instances"]) == 30, (code, out))
+        req = {"circuit": "voter", "k": 13, "proof": out["proof"],
+               "instances": out["instances"]}
+        code, chk = _http(url + "/verify", req)
+        require(code == 200 and chk["valid"] is True, chk)
+        bad = bytearray(bytes.fromhex(out["proof"]))
+        bad[40] ^= 1
+        code, chk = _http(url + "/verify", dict(req, proof=bytes(bad).hex()))
+        require(code == 200 and chk["valid"] is False, chk)
+        code, err = _http(url + "/prove", {"circuit": "nope"})
+        require(code == 400, (code, err))
+        t0 = time.time()
+        code, out = _http(url + "/prove", {"circuit": "voter", "k": 13,
+                                           "seed": 4})
+        times["prove_warm_request_s"] = time.time() - t0
+        times["prove_warm_ms"] = out["ms"]
+        code, chk = _http(url + "/verify", dict(
+            req, proof=out["proof"], instances=out["instances"]))
+        require(code == 200 and chk["valid"] is True, chk)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    log(f"server: /health ok; voter k=13 proved (first request with keygen "
+        f"{times['prove_first_s']:.3f} s), verified, tampered proof and "
+        f"unknown circuit refused; warm /prove {times['prove_warm_ms']} ms "
+        f"({times['prove_warm_request_s']:.3f} s a request)")
+
+
+def phase_cli(work, times):
+    """The state-transition circuit at k=15 through `python -m
+    zksnap_tpu_torch.cli` in child processes on the card: keygen, prove,
+    verify exit 0, the vk digest and the instances are the frozen JAX
+    ones, and verify exits 1 on a proof with one flipped byte."""
+    import re
+
+    from zksnap_tpu_torch.prover import load_vk
+
+    with open(os.path.join(VECTORS, "torch_port_v1.json")) as f:
+        v = json.load(f)["state_k15"]
+    out = os.path.join(work, "cli")
+    common = ["--circuit", "state_transition", "--k", str(v["k"]),
+              "--seed", str(v["inputs_seed"])]
+
+    def run(name, *args):
+        t0 = time.time()
+        res = subprocess.run(
+            [sys.executable, "-m", "zksnap_tpu_torch.cli", *args], cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        times[f"{name}_s"] = time.time() - t0
+        inner = re.search(r"^(?:keygen|prove) ([0-9.]+)s$", res.stderr, re.M)
+        if inner:
+            times[f"{name}_inner_s"] = float(inner.group(1))
+        return res
+
+    res = run("keygen", "keygen", *common, "--out", out)
+    require(res.returncode == 0, ("cli keygen", res.stderr[-2000:]))
+    vk = load_vk(os.path.join(out, "state_transition_vk.bin"))
+    shape = {key: getattr(vk, key) for key in v["vk_shape"]}
+    require(shape == v["vk_shape"], (shape, v["vk_shape"]))
+    require(vk_digest(vk) == v["vk_sha256"], (vk_digest(vk), v["vk_sha256"]))
+    proof = os.path.join(out, "state_transition.proof")
+    res = run("prove", "prove", *common, "--pk",
+              os.path.join(out, "state_transition_pk.bin"), "--out", proof)
+    require(res.returncode == 0, ("cli prove", res.stderr[-2000:]))
+    with open(proof + ".inst.json") as f:
+        require([str(x) for x in json.load(f)] == v["instances"],
+                "CLI instances differ from the frozen ones")
+    verify = ["verify", "--vk", os.path.join(out, "state_transition_vk.bin"),
+              "--proof", proof, "--instances", proof + ".inst.json"]
+    res = run("verify", *verify)
+    require(res.returncode == 0, ("cli verify", res.stdout, res.stderr[-2000:]))
+    with open(proof, "rb") as f:
+        bad = bytearray(f.read())
+    bad[len(bad) // 2] ^= 1
+    with open(proof, "wb") as f:
+        f.write(bytes(bad))
+    res = run("verify_tampered", *verify)
+    require(res.returncode == 1, ("cli verify of a tampered proof",
+                                  res.returncode, res.stderr[-2000:]))
+    log(f"CLI state_transition k={v['k']}: vk {shape}, digest "
+        f"{vk_digest(vk)[:16]}... equals the frozen JAX digest; keygen "
+        f"{times['keygen_s']:.3f} s ({times.get('keygen_inner_s')} s in "
+        f"keygen), prove {times['prove_s']:.3f} s "
+        f"({times.get('prove_inner_s')} s in prove), verify "
+        f"{times['verify_s']:.3f} s exit 0; tampered proof exit 1 "
+        f"({times['verify_tampered_s']:.3f} s)")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; a CUDA GPU "
@@ -765,6 +1144,9 @@ def main():
     from zksnap_tpu_torch import kernels
     from zksnap_tpu_torch.curves.fused import (bucket_scan, ladder_tree,
                                                point, weighted_suffix)
+    from zksnap_tpu_torch.curves.pallas_point import (point_add_batch,
+                                                      point_add_staged,
+                                                      point_dbl_batch)
     from zksnap_tpu_torch.fields.pallas_mont import mont_addsub, mont_mul
 
     dev = torch.device("cuda", 0)
@@ -780,10 +1162,13 @@ def main():
     kernels.library()
     log(f"build: {os.path.relpath(lib_path, ROOT)}; nvcc {build_s:.1f} s "
         f"(with loading {time.time() - t0:.1f} s)")
+    ptxas = []
     with open(os.path.join(os.path.dirname(lib_path),
                            f"build_{kernels.source_hash()}.log")) as f:
         for line in f:
-            if "Compiling entry function" in line or "registers" in line:
+            if any(w in line for w in ("Compiling entry function",
+                                       "registers", "spill")):
+                ptxas.append(line.strip())
                 log("  ptxas:", line.strip())
 
     rng = random.Random(20261016)
@@ -791,48 +1176,70 @@ def main():
     phase2(dev, rng, results)
     phase2_k21(dev, rng, results)
     phase2_reduce(dev, rng, results)
-    # the kernels line gives each kernel at the k=21 path's shape (its
-    # launches are that path's); the largest error is over every shape
-    for name in ("K1", "K2", "K3", "K4", "K5", "K6"):
+    launches_k7_k8 = phase_point_batch(dev, rng, results)
+    # the kernels line gives K1-K6 at the k=21 path's shape (their
+    # launches are that path's) and K7, K8 at n = 2^20 (their launches
+    # their own path's); the largest error is over every shape
+    for name, tag in (("K1", "k21"), ("K2", "k21"), ("K3", "k21"),
+                      ("K4", "k21"), ("K5", "k21"), ("K6", "k21"),
+                      ("K7", "n2^20"), ("K8", "n2^20")):
         shapes = results[name + "_shapes"]
-        results[name] = dict(shapes["k21"], max_abs_err=max(
+        results[name] = dict(shapes[tag], max_abs_err=max(
             r["max_abs_err"] for r in shapes.values()))
 
-    counters = {"K1": mont_mul, "K2": mont_addsub, "K3": point,
-                "K4": bucket_scan, "K5": weighted_suffix, "K6": ladder_tree}
+    counters = {"K1": (mont_mul,), "K2": (mont_addsub,), "K3": (point,),
+                "K4": (bucket_scan,), "K5": (weighted_suffix,),
+                "K6": (ladder_tree,), "K7": (point_add_staged,),
+                "K8": (point_add_batch, point_dbl_batch)}
 
     def zero_counts():
-        for fn in counters.values():
-            fn.launches = 0
+        for fns in counters.values():
+            for fn in fns:
+                fn.launches = 0
 
     def read_counts():
-        return {name: fn.launches for name, fn in counters.items()}
+        return {name: sum(fn.launches for fn in fns)
+                for name, fns in counters.items()}
+
+    def path(name, fn, needs):
+        """Drive one path with the counts set to 0 just before it and read
+        just after; each kernel in `needs` must have launched."""
+        zero_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        log(f"kernel launches over the {name} path: {counts}")
+        require(all(counts[k] > 0 for k in needs), (name, counts))
+        path_launches[name] = counts
+        return out
 
     work = tempfile.mkdtemp(prefix="chip_smoke_srs_",
                             dir=os.path.join(ROOT, "build"))
-    k13, k21 = {}, {}
+    k13, k21, srs15, protocol, serving, cli_times = {}, {}, {}, {}, {}, {}
+    path_launches = {}
+    k1_k4 = ("K1", "K2", "K3", "K4")
     try:
         phase3(dev, work)
-        zero_counts()
-        pk, inst = phase4(dev, work, k13)
-        launches_k13 = read_counts()
-        log(f"kernel launches over the voter k=13 path: {launches_k13}")
-        require(all(launches_k13[k] > 0 for k in ("K1", "K2", "K3", "K4")),
-                launches_k13)
+        pk, inst = path("voter k=13", lambda: phase4(dev, work, k13), k1_k4)
         profile_prove(pk, inst, k13)
         del pk
         with fused_reduce("1"):
-            zero_counts()
-            srs, pk, inst = phase_plume(dev, work, k21)
-            launches = read_counts()
-            log("kernel launches over the PLUME voter k=21 path: "
-                f"{launches}")
-            require(all(x > 0 for x in launches.values()), launches)
+            srs, pk, inst = path(
+                "PLUME voter k=21", lambda: phase_plume(dev, work, k21),
+                k1_k4 + ("K5", "K6"))
             profile_prove(pk, inst, k21)
         del pk
         fused_commit_parity(srs, k21)
+        del srs
+        path("ceremony SRS k=15",
+             lambda: phase_ceremony_srs(dev, work, srs15), ("K1", "K2", "K3"))
+        path("protocol k=13", lambda: phase_protocol(dev, protocol), k1_k4)
+        path("server voter k=13", lambda: phase_server(dev, serving), k1_k4)
+        # the CLI runs in child processes, whose counts this one cannot read
+        phase_cli(work, cli_times)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    launches = dict(path_launches["PLUME voter k=21"], **launches_k7_k8)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -852,6 +1259,10 @@ def main():
                "zksnap_tpu/curves/fused.py:566"),
         "K6": ("ladder_tree", "zksnap_tpu_torch/csrc/reduce.cu",
                "zksnap_tpu/curves/fused.py:678"),
+        "K7": ("point_add_staged", "zksnap_tpu_torch/csrc/pallas_point.cu",
+               "zksnap_tpu/curves/pallas_point.py:280"),
+        "K8": ("point_add_batch", "zksnap_tpu_torch/csrc/pallas_point.cu",
+               "zksnap_tpu/curves/pallas_point.py:322"),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -864,7 +1275,10 @@ def main():
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({**line, "voter_k13": k13, "voter_plume_k21": k21,
-                   "launches_k13": launches_k13,
+                   "ceremony_srs_k15": srs15, "protocol_k13": protocol,
+                   "server_k13": serving, "cli_state_k15": cli_times,
+                   "path_launches": path_launches,
+                   "launches_k7_k8": launches_k7_k8, "ptxas": ptxas,
                    "k3_kinds": results["K3_kinds"],
                    "shapes": {k: results[k + "_shapes"] for k in meta},
                    "device_ms": {k: results[k]["device_ms"] for k in meta},

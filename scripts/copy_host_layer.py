@@ -36,6 +36,7 @@ HOST = [
     "natives/plume.py", "natives/hash_to_curve.py",
     "hash/grain.py", "curves/__init__.py", "curves/native.py",
     "prover/keygen.py", "prover/transcript.py", "prover/pairing.py",
+    "prover/accumulator.py", "prover/recursion.py",
 ]
 
 PARTIAL = {

@@ -22,11 +22,25 @@ PyTorch port (zksnap_tpu_torch) is held to without rerunning the JAX prover.
   (f) the voter circuit with PLUME on at k=21 (`VoterFlags()`, inputs
       from `random.Random(20260817)`, lookup_bits=14, as
       scripts/prove_voter_tpu.py makes it): synthesis stats, instances
-      and the layout's vk shape (host code only; no keygen).
+      and the layout's vk shape (host code only; no keygen);
+  (g) `pallas_point`: `point_add_batch`, `point_dbl_batch` and
+      `point_add_staged` of curves/pallas_point.py in interpret mode on
+      a seeded batch of 8 BN254 G1 Jacobian points (P = inf, Q = inf, both
+      inf, P = Q, P = -Q, then random), inputs and outputs as canonical
+      integers;
+  (h) `state_k15`: the state-transition circuit at k=15 (inputs from
+      `generate_wrapper_circuit_input(1, random.Random(20260817))`,
+      lookup_bits=14, as scripts/prove_state_tpu.py makes them): stats,
+      instances, vk shape and vk digest (one keygen at k=15);
+  (i) `srs_file_k7`: the sha256 of the ceremony-format file that
+      `save_srs(gen_srs(7))` writes;
+  (j) `state_k13`: as (h) at k=13 (lookup_bits=12), the size of the
+      protocol's rounds (scripts/protocol_demo.py).
 
 Run on the CPU:  python scripts/gen_torch_port_vectors.py [part ...]
-with parts among k7, voter_k13, msm, reduce, plume (all by default); the
-parts named replace their entries in the existing file.
+with parts among k7, voter_k13, msm, reduce, plume, pallas_point,
+state_k15, state_k13, srs_file (all by default); the parts named replace
+their entries in the existing file.
 """
 
 import hashlib
@@ -52,7 +66,10 @@ MSM_SEED, MSM_N = 25, 20
 REDUCE_SEED = 26
 REDUCE_CASES = ((3, 3, True), (3, 2, False))  # (c, W, signed)
 PLUME_K, PLUME_LOOKUP_BITS = 21, 14
-PARTS = ("k7", "voter_k13", "msm", "reduce", "plume")
+POINT_SEED, POINT_N = 27, 8
+STATE_K, STATE_SMALL_K, STATE_SEED = 15, 13, 20260817
+PARTS = ("k7", "voter_k13", "msm", "reduce", "plume", "pallas_point",
+         "state_k15", "state_k13", "srs_file")
 
 
 def vk_digest(vk) -> str:
@@ -146,6 +163,30 @@ def reduce_case(c: int, W: int, signed: bool) -> dict:
             "s2": [[str(s2_ints[i][j]) for i in range(3)]
                    for j in range(W * B)],
             "ladder": [str(F.from_mont(a)) for a in t]}
+
+
+def point_inputs(seed: int, n: int, curve, affine_point):
+    """n (P, Q) pairs of Jacobian points (l^2 x, l^3 y, l) as canonical
+    ints, rows 0-4: P = inf, Q = inf, both inf, P = Q, P = -Q (an
+    identity is (l^2, l^3, 0)); the rest random."""
+    rng = random.Random(seed)
+    g = affine_point.generator(curve)
+    q = curve.p
+    pool = [rng.randrange(1, curve.n) * g for _ in range(4)]
+    ident = affine_point.identity(curve)
+    a, b = pool[0], pool[1]
+    pairs = [(ident, a), (b, ident), (ident, ident), (a, a), (b, -b)]
+    while len(pairs) < n:
+        pairs.append((rng.choice(pool), rng.choice(pool)))
+
+    def enc(pt):
+        lam = rng.randrange(1, q)
+        l2, l3 = lam * lam % q, lam * lam * lam % q
+        if pt.is_identity():
+            return [l2, l3, 0]
+        return [l2 * pt.x % q, l3 * pt.y % q, lam]
+
+    return [enc(pa) + enc(pb) for pa, pb in pairs]
 
 
 def vk_shape(vk) -> dict:
@@ -273,6 +314,127 @@ def part_plume() -> dict:
                      "usable": lay.usable,
                      "ext_log": quotient_ext_log(lay.n_lookup)},
     }}
+
+
+class _BlockRef:
+    """One block of a pallas_call operand as interpret mode hands it to a
+    kernel body: reads give jax arrays, writes land in the block."""
+
+    def __init__(self, block):
+        import numpy as np
+
+        self.block = np.array(block, dtype=np.uint32)
+
+    def __getitem__(self, idx):
+        import jax.numpy as jnp
+
+        return jnp.asarray(self.block[idx])
+
+    def __setitem__(self, idx, value):
+        import numpy as np
+
+        self.block[idx] = np.asarray(value)
+
+
+def _one_block_call(kernel, ins, n_out: int):
+    """A pallas_call over a grid of one block, as interpret mode runs it:
+    the kernel body on the whole [16, block] operands, op by op.  (Jitted
+    interpret mode hands XLA the unrolled body, which takes the CPU
+    compiler tens of minutes for one point kernel.)"""
+    import jax.numpy as jnp
+
+    refs = [_BlockRef(a) for a in ins]
+    outs = [_BlockRef(0 * refs[0].block) for _ in range(n_out)]
+    kernel(*refs, *outs)
+    return [jnp.asarray(o.block) for o in outs]
+
+
+def part_pallas_point() -> dict:
+    """K7 and K8: the kernel bodies of curves/pallas_point.py, each
+    pallas_call run as interpret mode runs it on the one block of 128 (the
+    TPU's lane width) that holds the batch, with the module's own
+    padding, layout and unpadding; the staged add wired as
+    `_staged_add_fn` wires it."""
+    from zksnap_tpu.curves import pallas_point as pp
+    from zksnap_tpu.curves.native import BN254_G1, AffinePoint
+    from zksnap_tpu.fields import bn254_fq
+
+    F = bn254_fq()
+    block = 128
+    rows = point_inputs(POINT_SEED, POINT_N, BN254_G1, AffinePoint)
+    cols = [F.to_mont([r[i] for r in rows]) for i in range(6)]
+    arrs, batch, n = pp._prep(cols, block)
+    assert arrs[0].shape == (16, block)
+    add_kernel, dbl_kernel = pp._point_kernels(F.p, F.n0)
+    stage_a, stage_b = pp._staged_kernels(F.p, F.n0)
+    x1, y1, z1, x2, y2, z2 = arrs
+    t0 = time.time()
+    res = {"dbl": _one_block_call(dbl_kernel, arrs[:3], 3),
+           "add": _one_block_call(add_kernel, arrs, 3)}
+    cross = _one_block_call(stage_a, arrs, 6)
+    res["staged"] = _one_block_call(
+        stage_b, cross + [z1, z2, x1, y1, x2, y2] + res["dbl"], 3)
+    print(f"  pallas_point: {time.time() - t0:.1f}s", flush=True)
+    out = {}
+    for name, got in res.items():
+        ints = [F.from_mont(a) for a in pp._unprep(got, batch, n)]
+        out[name] = [[str(ints[i][j]) for i in range(3)]
+                     for j in range(POINT_N)]
+    assert out["staged"] == out["add"]
+    return {"pallas_point": {
+        "seed": POINT_SEED, "n": POINT_N, "field": "bn254_fq", "block": 128,
+        "inputs": [[str(v) for v in r] for r in rows], **out}}
+
+
+def state_part(k: int) -> dict:
+    from zksnap_tpu.circuits.state_transition import (
+        expected_instances,
+        state_transition_circuit,
+    )
+    from zksnap_tpu.natives import generate_wrapper_circuit_input
+    from zksnap_tpu.prover.plonk import keygen
+    from zksnap_tpu.prover.srs import gen_srs
+    from zksnap_tpu.trace import Context, check
+
+    _, sts = generate_wrapper_circuit_input(1, random.Random(STATE_SEED))
+    ctx = Context(lookup_bits=min(14, k - 1))
+    pub = []
+    state_transition_circuit(ctx, sts[0], pub)
+    inst = [c.value for c in pub]
+    assert inst == expected_instances(sts[0])
+    check(ctx, inst)
+    pk = keygen(ctx, k, gen_srs(k))
+    return {f"state_k{k}": {
+        "k": k, "srs_seed": "dev", "inputs_seed": STATE_SEED,
+        "lookup_bits": min(14, k - 1),
+        "stats": {k_: int(v) for k_, v in ctx.stats().items()
+                  if isinstance(v, int)},
+        "instances": [str(v) for v in inst],
+        "vk_shape": vk_shape(pk.vk),
+        "vk_sha256": vk_digest(pk.vk),
+    }}
+
+
+def part_state_k15() -> dict:
+    return state_part(STATE_K)
+
+
+def part_state_k13() -> dict:
+    return state_part(STATE_SMALL_K)
+
+
+def part_srs_file() -> dict:
+    import tempfile
+
+    from zksnap_tpu.prover.srs import gen_srs, save_srs
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "kzg_bn254_7.srs")
+        save_srs(gen_srs(7), path)
+        with open(path, "rb") as f:
+            data = f.read()
+    return {"srs_file_k7": {"k": 7, "srs_seed": "dev", "bytes": len(data),
+                            "sha256": hashlib.sha256(data).hexdigest()}}
 
 
 if __name__ == "__main__":

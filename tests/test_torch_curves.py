@@ -29,6 +29,7 @@ from zksnap_tpu_torch.curves.proj import bn254_proj_ops
 from zksnap_tpu_torch.fields import bn254_fq, secp256k1_fp
 
 torch.set_num_threads(1)
+DEV = "cpu"
 
 B3 = 3 * BN254_G1.b
 
@@ -65,7 +66,7 @@ def _encode(pts, F, rng, jacobian: bool, affine: bool = False,
             rows.append((lam * lam * pt.x % q, lam ** 3 * pt.y % q, lam))
         else:
             rows.append((lam * pt.x % q, lam * pt.y % q, lam))
-    return [F.to_mont([r[i] for r in rows]) for i in range(3)]
+    return [F.to_mont([r[i] for r in rows], DEV) for i in range(3)]
 
 
 def _edge_points(curve, rng):
@@ -230,7 +231,7 @@ def test_curve_ops_against_oracle(ops_fn):
     pts.append(AffinePoint.identity(curve))
     ks = [rng.randrange(1 << 12) for _ in pts]
     ks[1] = 0
-    P = ops.from_affine_host(pts)
+    P = ops.from_affine_host(pts, DEV)
     bits = torch.tensor([[(k >> (11 - i)) & 1 for i in range(12)]
                          for k in ks])
     R = ops.scalar_mul(P, bits)
@@ -242,7 +243,7 @@ def test_curve_ops_against_oracle(ops_fn):
     for w, z in zip(want, N.z):
         assert torch.equal(z, torch.zeros_like(one) if w.is_identity()
                            else one)
-    ident = ops.identity((2,))
+    ident = ops.identity((2,), DEV)
     assert ops.to_affine_host(ident) == [AffinePoint.identity(curve)] * 2
     assert bool(ops.is_identity(ident).all())
     S = ops.add(R, ops.neg(R))
@@ -257,7 +258,7 @@ def test_curve_ops_against_oracle(ops_fn):
 def test_point_wrapper_dispatch():
     """A CPU tensor launches nothing; operands on two devices raise."""
     F = bn254_fq()
-    P = bn254_ops().from_affine_host([AffinePoint.generator(BN254_G1)])
+    P = bn254_ops().from_affine_host([AffinePoint.generator(BN254_G1)], DEV)
     before = (tfused.point.launches, tfused.bucket_scan.launches)
     tfused.point("dbl", [P.x, P.y, P.z], F.p)
     assert (tfused.point.launches, tfused.bucket_scan.launches) == before

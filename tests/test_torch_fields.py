@@ -23,6 +23,7 @@ from zksnap_tpu_torch.fields import field as tfield
 from zksnap_tpu_torch.fields import pallas_mont as tpm
 
 torch.set_num_threads(1)
+DEV = "cpu"
 
 FIELDS = ["bn254_fr", "bn254_fq", "secp256k1_fp", "secp256k1_fq"]
 
@@ -55,7 +56,7 @@ def test_field_ops_match_jax(name):
     p = TF.p
     xs = _values(p, rng)
     ys = list(reversed(_values(p, rng)))
-    ta, tb = TF.to_mont(xs), TF.to_mont(ys)
+    ta, tb = TF.to_mont(xs, DEV), TF.to_mont(ys, DEV)
     ja, jb = JF.to_mont(xs), JF.to_mont(ys)
     assert np.array_equal(ta.numpy(), np.asarray(ja).astype(np.int32))
 
@@ -77,7 +78,7 @@ def test_field_ops_match_jax(name):
         pow(x, 65537, p) for x in xs]
     # the results are canonical: bit-equal to the oracle's limbs
     assert np.array_equal(TF.mul(ta, tb).numpy(),
-                          TF.to_mont(cases["mul"][2]).numpy())
+                          TF.to_mont(cases["mul"][2], DEV).numpy())
     narrow = TF.mont_reduce_narrow(ta)
     assert tcommon.limbs_to_ints(narrow) == xs
     assert tcommon.limbs_to_ints(narrow) == jcommon.limbs_to_ints(
@@ -96,7 +97,7 @@ def test_inverses_match_jax(name):
         xs = [rng.randrange(1, p) for _ in range(n)]
         for i in range(0, n, 4):
             xs[i] = 0
-        ta = TF.to_mont(xs)
+        ta = TF.to_mont(xs, DEV)
         want = [pow(x, -1, p) if x else 0 for x in xs]
         got = TF.batch_inv(ta)
         assert TF.from_mont(got) == want
@@ -117,7 +118,7 @@ def test_kernels_match_pallas_interpret(name):
     rng = random.Random(3)
     xs = _values(TF.p, rng)
     ys = _values(TF.p, rng)
-    ta, tb = TF.to_mont(xs), TF.to_mont(ys)
+    ta, tb = TF.to_mont(xs, DEV), TF.to_mont(ys, DEV)
     ja, jb = _j(ta), _j(tb)
     if name in ("bn254_fr", "secp256k1_fp"):
         assert np.array_equal(
@@ -136,9 +137,9 @@ def test_broadcasting_matches_jax():
     rng = random.Random(4)
     xs = [rng.randrange(TF.p) for _ in range(24)]
     y = rng.randrange(TF.p)
-    a = TF.to_mont(xs).reshape(3, 8, 16)
-    row = TF.to_mont(xs[:8])                      # [8, 16]
-    one = TF.to_mont(y)                           # [16]
+    a = TF.to_mont(xs, DEV).reshape(3, 8, 16)
+    row = TF.to_mont(xs[:8], DEV)                # [8, 16]
+    one = TF.to_mont(y, DEV)                     # [16]
     for u, v in [(a, one), (one[None], a), (a, row), (row[:, None], row)]:
         for op in ("mul", "sub"):
             got = getattr(TF, op)(u, v)
@@ -184,7 +185,7 @@ def test_wrappers_dispatch_on_device():
     on any other device than the CPU or a GPU, or operands on two
     devices, raise."""
     F = tfield.bn254_fr()
-    a = F.to_mont([3, 4])
+    a = F.to_mont([3, 4], DEV)
     before = (tpm.mont_mul.launches, tpm.mont_addsub.launches)
     F.mul(a, a)
     F.add(a, a)

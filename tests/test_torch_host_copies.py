@@ -7,7 +7,8 @@ copy leaves out exactly the device parts named below.  The host verifier
 at the end of the port's prover/plonk.py is compared the same way, but
 for its instance commitment (held to the JAX one by value in
 test_torch_prover.py).  In a
-fresh interpreter where `import jax` fails, the port imports and
+fresh interpreter where `import jax` fails, the port imports (its CLI,
+service, serialisers and K7/K8 module among the rest) and
 synthesises and lays out the voter circuit at k=13.
 """
 
@@ -109,6 +110,7 @@ def test_copies_found():
     for must in ("trace/context.py", "circuits/voter.py", "prover/keygen.py",
                  "prover/transcript.py", "prover/pairing.py",
                  "curves/native.py", "hash/grain.py", "natives/inputs.py",
+                 "prover/accumulator.py", "prover/recursion.py",
                  *DEVICE_ONLY):
         assert must in got, must
 
@@ -167,6 +169,9 @@ sys.modules["jax"] = None
 import zksnap_tpu_torch
 for m in pkgutil.walk_packages(zksnap_tpu_torch.__path__, "zksnap_tpu_torch."):
     importlib.import_module(m.name)
+for m in ("cli", "server", "prover.serialize", "prover.accumulator",
+          "prover.recursion", "curves.pallas_point"):
+    assert "zksnap_tpu_torch." + m in sys.modules, m
 assert not any(k == "jax" or k.startswith(("jax.", "zksnap_tpu."))
                for k in sys.modules if sys.modules[k] is not None)
 from zksnap_tpu_torch.circuits.voter import VoterFlags, voter_circuit

@@ -32,6 +32,7 @@ from zksnap_tpu_torch.poly.ntt import ntt
 from zksnap_tpu_torch.prover import poly_device
 
 torch.set_num_threads(1)
+DEV = "cpu"
 
 
 def _points_and_scalars(rng, n):
@@ -79,7 +80,7 @@ def test_variable_base_msm(signed):
     pts, ks = _points_and_scalars(rng, 40)
     ops = bn254_proj_ops()
     msm = pippenger.MSM(ops, signed=signed)
-    got = msm(ops.from_affine_host(pts), torch.from_numpy(ints_to_limbs(ks)))
+    got = msm(ops.from_affine_host(pts, DEV), torch.from_numpy(ints_to_limbs(ks)))
     assert ops.to_affine_host(
         type(got)(got.x[None], got.y[None], got.z[None]))[0] == _oracle(
             pts, ks)
@@ -93,9 +94,9 @@ def test_jacobian_msm_and_lanes():
     want = _oracle(pts, ks)
     scal = torch.from_numpy(ints_to_limbs(ks))
     jac = pippenger.bn254_msm()
-    r = jac(jac.ops.from_affine_host(pts), scal)
+    r = jac(jac.ops.from_affine_host(pts, DEV), scal)
     ops = bn254_proj_ops()
-    q = pippenger.msm_impl(ops, ops.from_affine_host(pts), scal, 8, 32,
+    q = pippenger.msm_impl(ops, ops.from_affine_host(pts, DEV), scal, 8, 32,
                            lanes=7)
     for o, got in ((jac.ops, r), (ops, q)):
         assert o.to_affine_host(
@@ -111,7 +112,7 @@ def test_fixed_base_equals_variable_base(c):
     n = 24
     pts, ks = _points_and_scalars(rng, n)
     ops = bn254_proj_ops()
-    P = ops.from_affine_host(pts)
+    P = ops.from_affine_host(pts, DEV)
     scal = torch.from_numpy(ints_to_limbs(ks))
     table = fixed_base.build_table(P, n, c)
     assert table.x.shape == (table.n_windows * n, 16)
@@ -143,7 +144,7 @@ def test_msm_matches_frozen_jax_msm():
         v = json.load(f)["msm_proj"]
     pts, ks = _points_and_scalars(random.Random(v["seed"]), v["n"])
     ops = bn254_proj_ops()
-    r = pippenger.bn254_msm_proj()(ops.from_affine_host(pts),
+    r = pippenger.bn254_msm_proj()(ops.from_affine_host(pts, DEV),
                                    torch.from_numpy(ints_to_limbs(ks)))
     got = ops.to_affine_host(type(r)(r.x[None], r.y[None], r.z[None]))[0]
     assert (hex(got.x), hex(got.y)) == (v["x"], v["y"])
@@ -156,7 +157,7 @@ def test_ntt_matches_jax(k):
     rng = np.random.default_rng(26 + k)
     vals = [int(v) for v in rng.integers(0, 1 << 62, size=1 << k)]
     vals = [v * v % F.p for v in vals]
-    x = F.to_mont(vals)
+    x = F.to_mont(vals, DEV)
     jx = jnp.asarray(x.numpy().astype(np.uint32))
     fwd = ntt(k).forward(x)
     assert np.array_equal(
@@ -180,12 +181,12 @@ def test_domain_and_powers_match_jax():
         assert (d.n, d.omega, d.omega_inv, d.n_inv) == (
             jd.n, jd.omega, jd.omega_inv, jd.n_inv)
     d = domain(5)
-    assert F.from_mont(d.twiddles()) == jdomain(5).omega_powers_host(16)
-    assert F.from_mont(d.twiddles_inv()) == [
+    assert F.from_mont(d.twiddles(DEV)) == jdomain(5).omega_powers_host(16)
+    assert F.from_mont(d.twiddles_inv(DEV)) == [
         pow(d.omega_inv, i, F.p) for i in range(16)]
-    assert F.from_mont(poly_device.pow_series(7, 11)) == [
+    assert F.from_mont(poly_device.pow_series(7, 11, DEV)) == [
         pow(7, i, F.p) for i in range(11)]
-    s = poly_device.pow_series(d.omega, 32)
+    s = poly_device.pow_series(d.omega, 32, DEV)
     assert F.from_mont(poly_device.coset_evals(
-        poly_device.evals_to_coeffs(s, 5), F.one_t("cpu")[None].expand(32, 16),
+        poly_device.evals_to_coeffs(s, 5), F.one_t(DEV)[None].expand(32, 16),
         5)) == F.from_mont(s)

@@ -30,9 +30,13 @@ from zksnap_tpu.prover import pairing as jpairing
 from zksnap_tpu.prover import plonk as jplonk
 from zksnap_tpu.prover import srs as jsrs
 from zksnap_tpu.prover.keygen import Layout as JLayout
-from zksnap_tpu_torch.prover import plonk
+from zksnap_tpu_torch.curves.jacobian import CurveOps
+from zksnap_tpu_torch.curves.proj import ProjOps
+from zksnap_tpu_torch.fields.field import PrimeField
+from zksnap_tpu_torch.poly.domain import Domain
+from zksnap_tpu_torch.prover import device_rounds, plonk, poly_device, serialize
 from zksnap_tpu_torch.prover.convert import pk_from_numpy, srs_from_numpy
-from zksnap_tpu_torch.prover.srs import (gen_srs, srs_cache_path,
+from zksnap_tpu_torch.prover.srs import (gen_srs, load_srs, srs_cache_path,
                                          srs_from_arrays)
 
 torch.set_num_threads(1)
@@ -222,12 +226,18 @@ def test_instance_commitment_matches_jax(port, jax_verifier, monkeypatch,
     assert (got.x, got.y) == (want.x, want.y)
 
 
-@pytest.mark.parametrize("fn", [gen_srs, srs_from_arrays, srs_from_numpy,
-                                plonk.keygen],
-                         ids=lambda f: f.__name__)
+@pytest.mark.parametrize("fn", [
+    gen_srs, srs_from_arrays, srs_from_numpy, plonk.keygen,
+    PrimeField.to_mont, CurveOps.identity, CurveOps.from_affine_host,
+    CurveOps.generator, ProjOps.identity, Domain.powers_of, Domain.twiddles,
+    Domain.twiddles_inv, poly_device.pow_series_uncached,
+    poly_device.pow_series, poly_device.to_device_poly,
+    device_rounds._omega_pows_dev, load_srs, serialize.load_pk],
+    ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
-    """The SRS and keygen entry points run on the CUDA device unless the
-    caller names another (the CPU tests name the CPU)."""
+    """The public entry points and tensor constructors run on the CUDA
+    device unless the caller names another (the CPU tests name the
+    CPU)."""
     import inspect
 
     assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -29,6 +29,7 @@ from zksnap_tpu_torch.fields import bn254_fq, ints_to_limbs
 from zksnap_tpu_torch.msm import pippenger
 
 torch.set_num_threads(1)
+DEV = "cpu"
 
 VECTORS = os.path.join(os.path.dirname(__file__), "vectors",
                        "torch_port_v1.json")
@@ -48,7 +49,7 @@ IDS = [f"c{v['c']}_W{v['W']}_{'signed' if v['signed'] else 'unsigned'}"
 def _flat(v):
     F = bn254_fq()
     rows = [[int(x) for x in r] for r in v["inputs"]]
-    return tuple(F.to_mont([r[i] for r in rows]) for i in range(3))
+    return tuple(F.to_mont([r[i] for r in rows], DEV) for i in range(3))
 
 
 def _sel(v):
@@ -127,7 +128,7 @@ def test_msm_fused_and_unfused(fused_reduce, monkeypatch):
     monkeypatch.setattr(pippenger, "weighted_suffix",
                         lambda *a: calls.append(1) or
                         fused.weighted_suffix(*a))
-    r = pippenger.msm_impl(ops, ops.from_affine_host(pts),
+    r = pippenger.msm_impl(ops, ops.from_affine_host(pts, DEV),
                            torch.from_numpy(ints_to_limbs(ks)), 8, 32)
     got = ops.to_affine_host(type(r)(r.x[None], r.y[None], r.z[None]))[0]
     assert got == want

@@ -52,12 +52,13 @@ class CurveOps:
 
     # -- constructors -------------------------------------------------------
 
-    def identity(self, shape=(), device="cpu") -> JacPoint:
+    def identity(self, shape=(), device="cuda") -> JacPoint:
         z = torch.zeros(shape + (N_LIMBS,), dtype=torch.int32, device=device)
         one = self.F.one_t(device).expand(shape + (N_LIMBS,))
         return JacPoint(one, one, z)
 
-    def from_affine_host(self, pts: list[AffinePoint], device="cpu") -> JacPoint:
+    def from_affine_host(self, pts: list[AffinePoint],
+                         device="cuda") -> JacPoint:
         """Host affine points -> device batch (identity-safe)."""
         F = self.F
         xs = [0 if p.is_identity() else p.x for p in pts]
@@ -134,7 +135,7 @@ class CurveOps:
             acc = self.select(k_bits[..., i].to(torch.bool), added, acc)
         return acc
 
-    def generator(self, shape=(), device="cpu") -> JacPoint:
+    def generator(self, shape=(), device="cuda") -> JacPoint:
         F = self.F
         full = shape + (N_LIMBS,)
         return JacPoint(F.const_t(self.params.gx, device).expand(full),

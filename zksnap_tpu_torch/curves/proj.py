@@ -28,7 +28,7 @@ class ProjOps(CurveOps):
         super().__init__(params, F)
         self.b3 = 3 * params.b
 
-    def identity(self, shape=(), device="cpu") -> JacPoint:
+    def identity(self, shape=(), device="cuda") -> JacPoint:
         z = torch.zeros(shape + (N_LIMBS,), dtype=torch.int32, device=device)
         one = self.F.one_t(device).expand(shape + (N_LIMBS,))
         return JacPoint(torch.zeros_like(z), one, z)

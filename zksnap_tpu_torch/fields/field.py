@@ -48,7 +48,7 @@ class PrimeField:
 
     # -- host-side canonical <-> Montgomery tensors ------------------------
 
-    def to_mont(self, xs, device="cpu") -> torch.Tensor:
+    def to_mont(self, xs, device="cuda") -> torch.Tensor:
         """Python int or list of ints -> Montgomery limb tensor."""
         if isinstance(xs, int):
             arr = int_to_limbs(xs % self.p * self.R % self.p)

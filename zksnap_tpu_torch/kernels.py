@@ -21,7 +21,8 @@ import shutil
 import subprocess
 
 CSRC = os.path.join(os.path.dirname(__file__), "csrc")
-SOURCES = ("mont.cu", "point.cu", "bucket_scan.cu", "reduce.cu")
+SOURCES = ("mont.cu", "point.cu", "bucket_scan.cu", "reduce.cu",
+           "pallas_point.cu")
 HEADERS = ("field.cuh", "point.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(__file__), "..", "build",
                          "torch_kernels")
@@ -38,6 +39,10 @@ _SIGNATURES = {
     "zk_bucket_scan": [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P, _P],
     "zk_weighted_suffix": [_P] * 9 + [_LL, _LL, _I, _I, _I, _P, _P],
     "zk_ladder_tree": [_P] * 6 + [_I, _I, _I, _I, _P, _P],
+    "zk_jac_add": [_P] * 9 + [_LL, _P, _P],
+    "zk_jac_dbl": [_P] * 6 + [_LL, _P, _P],
+    "zk_staged_add_a": [_P, _P, _LL, _P, _P],
+    "zk_staged_add_b": [_P, _P, _LL, _P, _P],
 }
 
 

@@ -28,7 +28,7 @@ class Domain:
         self.n_inv = pow(self.n, -1, F.p)
         self._tables = {}
 
-    def powers_of(self, w_int: int, count_log2: int, device="cpu"):
+    def powers_of(self, w_int: int, count_log2: int, device="cuda"):
         """[2^count_log2, 16] table of w^i in Montgomery form."""
         F = self.F
         one = F.one_t(device)[None, :]
@@ -48,11 +48,11 @@ class Domain:
                                                device)
         return self._tables[key]
 
-    def twiddles(self, device="cpu"):
+    def twiddles(self, device="cuda"):
         """[n/2, 16] omega^i for i < n/2 (Montgomery), cached per device."""
         return self._table(self.omega, device)
 
-    def twiddles_inv(self, device="cpu"):
+    def twiddles_inv(self, device="cuda"):
         return self._table(self.omega_inv, device)
 
 

@@ -35,7 +35,7 @@ def _omega_pows_cached(k: int, device: str):
     return acc
 
 
-def _omega_pows_dev(k: int, device="cpu"):
+def _omega_pows_dev(k: int, device="cuda"):
     """[n,16] Montgomery table of omega^i: log2(n) full-width multiplies
     by the omega^(2^b) factors selected per bit of i."""
     return _omega_pows_cached(k, str(torch.device(device)))

@@ -148,6 +148,39 @@ def keygen(ctx: Context, k: int, srs: SRS | None = None,
 # Prover
 # ---------------------------------------------------------------------------
 
+def rebind_witness(pk: ProvingKey, ctx: Context) -> ProvingKey:
+    """Reuse a proving key with a fresh witness (same circuit structure).
+
+    The reference's keygen is witness-independent; ours snapshots the
+    synthesis, so a new Context (same circuit, new inputs) is rebound by
+    replacing the witness-dependent columns.  Structure (gates, copies,
+    constants, lookups) must match the keygen synthesis exactly: the
+    JAX package's shape checks, raised as ValueError.  The fixed
+    coefficients stay on their device, shared with `pk`.
+    """
+    import copy
+
+    old = pk.layout
+    if len(ctx.advice) != old.cell_map.shape[0]:
+        raise ValueError("witness shape mismatch")
+    if len(ctx.gate_offsets) != sum(int(q.sum()) for q in old.q_cols):
+        raise ValueError("gate structure mismatch")
+    if len(ctx.lookups) != len(old.lookup_idx):
+        raise ValueError("lookup structure mismatch")
+    layout = copy.copy(old)
+    n = old.n
+    layout.advice_limbs = ctx.advice.limbs()
+    layout.lookup_idx = ctx.lookups.array()
+    from .keygen import _multiplicity_counts
+
+    layout.multiplicity = _multiplicity_counts(
+        layout.advice_limbs, layout.lookup_idx, old.n_lookup, n)
+    layout.instance_col = ([c.value for c in ctx.instance]
+                           + [0] * (n - len(ctx.instance)))
+    return ProvingKey(vk=pk.vk, layout=layout, srs=pk.srs,
+                      fixed_coeffs=pk.fixed_coeffs)
+
+
 def prove(pk: ProvingKey, instances: list[int], rng=None) -> bytes:
     """Prove; ZK blinding fills the ZK_ROWS tail rows of every witness-
     carrying committed polynomial with `rng.randrange` draws (lookup

@@ -33,7 +33,7 @@ from ..poly.ntt import _ntt_impl
 FR = bn254_fr()
 
 
-def pow_series_uncached(base_int: int, n: int, device="cpu"):
+def pow_series_uncached(base_int: int, n: int, device="cuda"):
     """[n,16] Montgomery table of base^i by log-depth doubling."""
     size = max(1, 1 << (n - 1).bit_length())
     arr = FR.one_t(device)[None, :]
@@ -50,12 +50,12 @@ def _pow_series_cached(base_int: int, n: int, device: str):
     return pow_series_uncached(base_int, n, device)
 
 
-def pow_series(base_int: int, n: int, device="cpu"):
+def pow_series(base_int: int, n: int, device="cuda"):
     """Cached `pow_series_uncached` (omega and generator powers)."""
     return _pow_series_cached(base_int, n, str(torch.device(device)))
 
 
-def to_device_poly(values, device="cpu"):
+def to_device_poly(values, device="cuda"):
     """Host evaluations -> Montgomery limb tensor [n, 16] on `device`.
 
     Accepts a list of python ints, an (n, 16) canonical limb-row array
