@@ -4,9 +4,9 @@ CUDA GPU and check it: the quickest proof that the port still starts.
     python3 chip_smoke.py
 
 Phases:
-  1. build the eight hand-written CUDA kernels from csrc/ (one nvcc for
+  1. build the eleven hand-written CUDA kernels from csrc/ (one nvcc for
      each source, all started together, timed; ptxas registers and
-     spills logged);
+     spills logged; the main loop of each K11 chain from cuobjdump -sass);
   2. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes, edge cases included, bit-exact, and time both:
      the k=13 path's (n = 8192 field elements and points; the fixed-base
@@ -20,6 +20,16 @@ Phases:
      once each at n = 2^20 with the counts read, then against their plain
      versions at n = 2^20 and n = 32768, edge cases included, the staged
      add against the fused one;
+  2b. the experiments path (K9-K11): the `main` of each module of
+     zksnap_tpu_torch/experiments at the scripts' default sizes
+     (exp_vpu_rates: 16 x 2^14 lanes, chain 512, 64 products;
+     exp_mul_variants: n = 2^20, chains x4/x18/x40 at 2^18; exp_mul_mxu:
+     B = 2^18, all six variants after its 256-value oracle check), with
+     the counts of K9-K11 set to 0 just before and read just after; then
+     each kernel against its plain version at those shapes (bit-exact,
+     bf16dot within BF16_TOL), with the mains' times a call and the
+     profiler's device times, K11's rates read again over a chain of
+     RATE_CHAIN steps (CUDA events) and the dots' library yardstick;
   3. K=7 parity with the frozen JAX vectors: the port's keygen gives the
      frozen vk digest, the port's verifier accepts the frozen proof, and
      a second keygen with ZKSNAP_TPU_FUSED_REDUCE=1 (every commit through
@@ -60,8 +70,14 @@ the profiler.  Each kernel's bound is the larger of the integer
 operations that its function needs at the H100's INT32 rate and its
 bytes (inputs read once, outputs written once) at 3.35 TB/s.  The
 kernels line gives K1-K6 at the k=21 path's shape, with that path's
-launches, and K7, K8 at n = 2^20 with their own path's; every shape's
-numbers go to chiprun_out/chip_smoke.json.
+launches, K7, K8 at n = 2^20 with their own path's, and K9 (variant B),
+K10 (mxu), K11 (u32mul and i8dot) at the experiments' shapes with the
+experiments path's, which count every variant or kind that launches the
+one kernel (K9: A's launches are K1's; K11: the chains and the dots
+apart); every shape's numbers go to chiprun_out/chip_smoke.json.  A K11
+chain's bound is what the main loop of its compiled kernel issues (its
+SASS), pipe by pipe; the dots' is their operations at the tensor cores'
+int8 or bf16 rate.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 check fails.  The last line of standard output is
@@ -75,12 +91,14 @@ import hashlib
 import json
 import os
 import random
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -106,9 +124,31 @@ JADD_OPS = 16 * MUL_OPS + 13 * ADD_OPS  # add-2007-bl; P == Q adds a JDBL
 JDBL_OPS = 7 * MUL_OPS + 14 * ADD_OPS
 
 
-def bound(ops: float, nbytes: float) -> dict:
+# The experiments' rates: the tensor cores' dense int8 and bf16 rates
+# (data sheet).  A step of K11's chains is bounded by what its compiled
+# loop issues (chain_loops): each of an SM's four sub-partitions issues
+# one warp instruction a clock, 128 lanes an SM; IMAD runs on the FMA
+# pipe's heavy half and IADD3, LOP3, SHF on the integer ALU pipe, 64 lanes
+# an SM a clock each (the white paper's 64 INT32 lanes); FFMA on both
+# halves of the FMA pipe, 128 (its 67 TFLOP/s).  A step takes the most
+# clocks that the issue or any one pipe spends on it.
+INT8_OPS_PER_S = 1979e12
+BF16_OPS_PER_S = 989e12
+SM_CLOCKS_PER_S = 132 * 1.98e9
+ISSUE_LANES = 128
+PIPES = {"imad": (64, ("IMAD",)),
+         "alu": (64, ("IADD3", "LOP3", "SHF", "LEA", "SEL", "PRMT")),
+         "fp32": (128, ("FFMA", "FADD", "FMUL"))}
+PRODUCT_OPS = 8 * 8 * 2  # the 256-bit product alone: 64 32-bit mul-adds
+# bf16dot against its plain version: the products' f32 sums run in another
+# order (a relative error up to 32 * 2^-24 of a step), and a bf16 rounding
+# of x that this flips moves the next step by 2^-8 of a term 1e-3 smaller
+BF16_TOL = 1e-4  # of max |acc|
+
+
+def bound(ops: float, nbytes: float, rate: float = INT32_OPS_PER_S) -> dict:
     """The least time the card could take: the larger of the two."""
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_ops = ops / rate * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return dict(bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
@@ -670,6 +710,309 @@ def phase_point_batch(dev, rng, results) -> dict:
     return launches
 
 
+# -- the experiments path: K9-K11 ---------------------------------------------
+
+def loop_control(op: str, args: str) -> bool:
+    """An instruction of a loop's control, not of its steps: the branch,
+    the compare, the uniform datapath's and convergence instructions, and
+    the counter's add of an immediate."""
+    return (op in ("BRA", "ISETP", "PLOP3", "NOP", "BSSY", "BSYNC",
+                   "WARPSYNC", "YIELD") or op.startswith("U")
+            or (op in ("IADD3", "VIADD", "IADD") and "0x" in args))
+
+
+def chain_loops(lib_path: str) -> dict:
+    """{chain kind: {opcode: count}}: the body of each K11 chain kernel's
+    main loop in `cuobjdump -sass`, its control left out.  That loop is
+    the span of the backward branch with the most instructions, and it
+    runs vr.CHAIN_UNROLL steps a trip."""
+    from zksnap_tpu_torch.experiments import exp_vpu_rates as vr
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    require(tool is not None, "cuobjdump, from which K11's bounds are read")
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = re.search(r"op_chain_kernelILi(\d)E", m.group(1))
+            cur = vr.CHAIN_KINDS[int(k.group(1))] if k else None
+            if cur:
+                funcs[cur] = []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9]*)\S*\s*([^;]*);", line)
+        if cur and m:
+            funcs[cur].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    loops = {}
+    for kind in vr.CHAIN_KINDS:
+        best = None
+        for addr, op, args in funcs.get(kind, ()):
+            target = re.findall(r"0x[0-9a-f]+", args)
+            if op != "BRA" or not target or int(target[-1], 16) > addr:
+                continue
+            lo = int(target[-1], 16)
+            body = [o for ad, o, a in funcs[kind]
+                    if lo <= ad <= addr and not loop_control(o, a)]
+            if best is None or len(body) > len(best):
+                best = body
+        require(best, ("no loop in the SASS of K11", kind))
+        loops[kind] = {o: best.count(o) for o in sorted(set(best))}
+    return loops
+
+
+def chain_step_rate(body: dict, unroll: int) -> float:
+    """Lane-steps a second that a loop body of `unroll` steps allows on
+    132 SMs: the issue and each pipe of PIPES spend body's instructions'
+    lanes at their own rate, and the slowest decides."""
+    clocks = sum(body.values()) / ISSUE_LANES
+    for lanes, ops in PIPES.values():
+        clocks = max(clocks, sum(body.get(o, 0) for o in ops) / lanes)
+    require(clocks > 0, ("an empty chain loop", body))
+    return SM_CLOCKS_PER_S * unroll / clocks
+
+
+def u32_rows(rng, W: int, dev) -> torch.Tensor:
+    """[16, W] uint32 bits as int32: rows 0-7 over all 32 bits, rows 8-15
+    below 2^16 (the scripts' range)."""
+    x = rng.integers(0, 1 << 32, (16, W), dtype=np.uint32)
+    x[8:] &= 0xFFFF
+    return torch.from_numpy(x.view(np.int32)).to(dev)
+
+
+def limb_rows(rng, n: int, top_mask: int, dev, edge=()) -> torch.Tensor:
+    """[16, n] random 16-bit limbs, the top one masked; the first columns
+    the values in `edge`."""
+    x = rng.integers(0, 1 << 16, (16, n), dtype=np.uint32)
+    x[-1] &= top_mask
+    for j, v in enumerate(edge):
+        x[:, j] = [(v >> (16 * i)) & 0xFFFF for i in range(16)]
+    return torch.from_numpy(x.view(np.int32)).to(dev)
+
+
+# the experiment scripts' default shapes: K11 on [16, 2^14] with a chain of
+# 512; K9 at n = 2^20 (chains at n / 4); K10 at B = 2^18
+EXP_W_LOG, EXP_CHAIN, EXP_N_LOG, EXP_B_LOG = 14, 512, 20, 18
+RATE_CHAIN = 16384  # K11's chains again, long enough to read a rate
+
+
+def phase_experiments(dev, results, loops: dict) -> dict:
+    """The experiments path: each module's `main` at the scripts' default
+    sizes on the card (exp_vpu_rates: 16 x 2^14 lanes, chain 512, 64
+    products; exp_mul_variants: n = 2^20, chains at 2^18; exp_mul_mxu:
+    B = 2^18, all six variants after the 256-value oracle check), with
+    the counts of K9-K11 set to 0 just before and read just after; then
+    every kernel against its plain version at those shapes, with the
+    mains' times per call and the profiler's device times.  `loops` are
+    K11's chain loop bodies (chain_loops), which bound its chains.
+    Returns the launches of the path."""
+    from zksnap_tpu_torch.experiments import exp_mul_mxu as mx
+    from zksnap_tpu_torch.experiments import exp_mul_variants as mv
+    from zksnap_tpu_torch.experiments import exp_vpu_rates as vr
+    from zksnap_tpu_torch.fields import bn254_fr
+    from zksnap_tpu_torch.fields.common import limbs_to_ints
+
+    counters = {"K9": mv.mul_limb_major, "K10": mx.mont_mul_mxu,
+                "K11 chain": vr.op_chain, "K11 dot": vr.dot_chain}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.time()
+    d = ["--device", dev.type]
+    lines = {"exp_vpu_rates": vr.main([str(EXP_W_LOG), str(EXP_CHAIN), *d]),
+             "exp_mul_variants": mv.main(["--log-n", str(EXP_N_LOG), *d]),
+             "exp_mul_mxu": mx.main([str(EXP_B_LOG), ",".join(mx.VARIANTS),
+                                     *d])}
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"experiments path, the three mains ({time.time() - t0:.1f} s): "
+        f"launches {launches}")
+    require(min(launches.values()) > 0, launches)
+    require(lines["exp_mul_variants"]["B == A"]
+            and lines["exp_mul_variants"]["C == A"], "K9: B or C != A")
+    require(all(lines["exp_mul_mxu"][v]["ok"] for v in mx.PRODUCTS),
+            ("K10 oracle", lines["exp_mul_mxu"]))
+    results["experiment_lines"] = lines
+    rng = np.random.default_rng(20261017)
+
+    # K11 chains: 16 x 2^14 lanes, chain 512 (and 13, the remainder loop);
+    # a step's bound is what its compiled loop issues
+    W, chain = 1 << EXP_W_LOG, EXP_CHAIN
+    require(chain % vr.CHAIN_UNROLL == 0 and RATE_CHAIN % vr.CHAIN_UNROLL
+            == 0, "K11's chains run whole trips of the main loop")
+    for kind in ("u32mul", "u16mul"):
+        require(loops[kind].get("IMAD") == vr.CHAIN_UNROLL,
+                ("K11 loop of", kind, loops[kind]))
+    require(loops["f32fma"].get("FFMA") == vr.CHAIN_UNROLL,
+            ("K11 loop of f32fma", loops["f32fma"]))
+    lanes = 16 * W
+    a, b = u32_rows(rng, W, dev), u32_rows(rng, W, dev)
+    for kind in vr.CHAIN_KINDS:
+        def fn(kind=kind):
+            return vr.op_chain(kind, a, b, chain)
+        want, plain_ms = timed(lambda: vr.op_chain_plain(kind, a, b, chain))
+        err = max(max_abs_err([fn()], [want]), max_abs_err(
+            [vr.op_chain(kind, a, b, 13)],
+            [vr.op_chain_plain(kind, a, b, 13)]))
+        require(err == 0, ("K11", kind, err))
+        rate = chain_step_rate(loops[kind], vr.CHAIN_UNROLL)
+        r = shape_result(
+            results, "K11", kind, lanes=lanes, chain=chain, max_abs_err=err,
+            ms=lines["exp_vpu_rates"][kind]["ms"], plain_ms=plain_ms,
+            device_ms=kernel_device_ms(fn, "op_chain_kernel"),
+            loop=loops[kind], **bound(lanes * chain, lanes * 12, rate))
+        # the rate: at chain 512 a launch lasts microseconds, so the rate
+        # is read again over a chain of RATE_CHAIN steps, from CUDA events
+        # over back-to-back launches of a third of a millisecond each
+        long_ms = cuda_ms(lambda: vr.op_chain(kind, a, b, RATE_CHAIN), 10)
+        r.update(rate_chain=RATE_CHAIN, rate_ms=long_ms,
+                 gop_s=lanes * RATE_CHAIN / long_ms / 1e6,
+                 bound_gop_s=rate / 1e9)
+        log(f"K11 {kind:7s} bit-exact ({lanes} lanes, chain {chain}): "
+            f"{r['ms']:.4f} ms a call ({fmt_ms(r['device_ms'])} on the "
+            f"device), plain {plain_ms:.4f} ms, bound {r['bound_ms']:.4g} ms"
+            f" (loop of {vr.CHAIN_UNROLL} steps: {loops[kind]}); chain "
+            f"{RATE_CHAIN}: {long_ms:.4f} ms a launch, {r['gop_s']:.1f} G "
+            f"steps/s (bound {r['bound_gop_s']:.1f})")
+
+    # K11 dots: [64, 32] x [32, 2^14], 64 products in a chain
+    n_mm = vr.N_MM
+    sides = {"i8dot": (rng.integers(-8, 8, (64, 32)).astype(np.int8),
+                       rng.integers(-8, 8, (32, W)).astype(np.int8)),
+             "bf16dot": (rng.standard_normal((64, 32)).astype(np.float32),
+                         (rng.standard_normal((32, W)) * 0.1).astype(
+                             np.float32))}
+    for kind in vr.DOT_KINDS:
+        go, (lhs, x0) = vr.make_dot(kind, W, n_mm, *sides[kind], device=dev)
+        got = go(lhs, x0)
+        want, plain_ms = timed(lambda: vr.dot_chain_plain(kind, lhs, x0,
+                                                          n_mm))
+        if kind == "i8dot":
+            err = max_abs_err([got], [want])
+            require(err == 0, ("K11 i8dot", err))
+            rate = INT8_OPS_PER_S
+        else:
+            err = float((got - want).abs().max() / want.abs().max())
+            require(err <= BF16_TOL, ("K11 bf16dot", err, BF16_TOL))
+            rate = BF16_OPS_PER_S
+
+        def library(kind=kind, lhs=lhs, x0=x0):
+            """The same chain through torch._int_mm / torch.matmul: a
+            yardstick, timed only."""
+            acc, x = None, x0
+            lb = lhs if kind == "i8dot" else lhs.to(torch.bfloat16)
+            for _ in range(n_mm):
+                if kind == "i8dot":
+                    y = torch._int_mm(lb, x)
+                    x = y[:32].to(torch.int8)
+                else:
+                    y = torch.matmul(lb, x).float()
+                    x = (y[:32] * 1e-3).to(torch.bfloat16)
+                acc = y if acc is None else acc + y
+            return acc
+
+        macs = 64 * 32 * W * n_mm
+        r = shape_result(
+            results, "K11dot", kind, W=W, n_mm=n_mm, max_abs_err=err,
+            exact=kind == "i8dot", ms=lines["exp_vpu_rates"][kind]["ms"],
+            plain_ms=plain_ms, library_ms=cuda_ms(library, 20),
+            device_ms=kernel_device_ms(lambda: go(lhs, x0),
+                                       "dot_chain_" + kind[:-3]),
+            library=("torch._int_mm" if kind == "i8dot" else "torch.matmul")
+            + " chain (a yardstick; the port never calls it)",
+            **bound(2 * macs, lhs.numel() * lhs.element_size()
+                    + x0.numel() * x0.element_size() + 64 * W * 4, rate))
+        r["tmac_s"] = None if r["device_ms"] is None else \
+            macs / r["device_ms"] / 1e9
+        log(f"K11 {kind} {'bit-exact' if kind == 'i8dot' else 'within'} "
+            f"(err {err:.3g}; [64,32]x[32,{W}], {n_mm} products): "
+            f"{r['ms']:.4f} ms a call ({fmt_ms(r['device_ms'])} on the "
+            f"device), plain {plain_ms:.4f} ms, library "
+            f"{fmt_ms(r['library_ms'])}, bound {r['bound_ms']:.4g} ms")
+
+    # K9: variants A, B, C at n = 2^20 (values below p, edge values first),
+    # B's chains at 2^18
+    F = mv.FQ
+    n = 1 << EXP_N_LOG
+    timing = lines["exp_mul_variants"]
+    a = limb_rows(rng, n, 0x2FFF, dev, edge=(0, 1, F.p - 1, F.p - 2))
+    b = limb_rows(rng, n, 0x2FFF, dev, edge=(F.p - 1, 0, F.p - 1, 1))
+    forms = {"B": lambda: mv.mul_limb_major(a, b, F.p),
+             "C": lambda: mv.mul_limb_major(a, b, F.p, rolled=True),
+             "A": lambda: mv.variant_a(a, b)}
+    want, plain_ms = timed(lambda: mv.mul_limb_major_plain(a, b, F.p))
+    for name, fn in forms.items():
+        err = max_abs_err([fn()], [want])
+        require(err == 0, ("K9", name, err))
+        r = shape_result(
+            results, "K9", name, n=n, max_abs_err=err,
+            ms=timing[name]["ms"], plain_ms=plain_ms,
+            device_ms=kernel_device_ms(
+                fn, "mont_mul_kernel" if name == "A" else "mul16_kernel"),
+            **bound(n * MUL_OPS, n * 3 * ROW))
+        log(f"K9 {name} bit-exact (n={n}): {r['ms']:.4f} ms a call "
+            f"({fmt_ms(r['device_ms'])} on the device), plain "
+            f"{plain_ms:.4f} ms, bound {r['bound_ms']:.4g} ms")
+    q = n // 4
+    aq, bq = a[:, :q].contiguous(), b[:, :q].contiguous()
+    for k in mv.CHAINS:
+        def fn(k=k):
+            return mv.mul_limb_major(aq, bq, F.p, n_muls=k)
+        want, plain_ms = timed(lambda: mv.mul_limb_major_plain(
+            aq, bq, F.p, n_muls=k))
+        err = max_abs_err([fn()], [want])
+        require(err == 0, ("K9 chain", k, err))
+        r = shape_result(
+            results, "K9", f"B x{k}", n=q, max_abs_err=err,
+            ms=timing[f"B x{k}"]["ms"], plain_ms=plain_ms,
+            device_ms=kernel_device_ms(fn, "mul16_kernel"),
+            **bound(q * k * MUL_OPS, q * 3 * ROW))
+        log(f"K9 B chain x{k} bit-exact (n={q}): {r['ms']:.4f} ms a call "
+            f"({fmt_ms(r['device_ms'])} on the device), plain "
+            f"{plain_ms:.4f} ms, bound {r['bound_ms']:.4g} ms")
+
+    # K10: six variants at B = 2^18 over all 16-bit limbs (the script's
+    # timing inputs), and the product variants on the 256 oracle values
+    Fr = bn254_fr()
+    B = 1 << EXP_B_LOG
+    timing = lines["exp_mul_mxu"]
+    a = limb_rows(rng, B, 0xFFFF, dev, edge=(0, 1, Fr.p - 1, (1 << 256) - 1))
+    b = limb_rows(rng, B, 0xFFFF, dev, edge=(Fr.p - 1, 0, Fr.p - 1,
+                                             (1 << 256) - 1))
+    a_small, b_small, oracle = mx.oracle_inputs()
+    a_small, b_small = a_small.to(dev), b_small.to(dev)
+    for variant in mx.VARIANTS:
+        def fn(variant=variant):
+            return mx.mont_mul_mxu(a, b, variant, Fr.p)
+        want, plain_ms = timed(lambda: mx.mont_mul_mxu_plain(
+            a, b, variant, Fr.p))
+        err = max_abs_err([fn()], [want])
+        require(err == 0, ("K10", variant, err))
+        if variant in mx.PRODUCTS:
+            got = mx.mont_mul_mxu(a_small, b_small, variant, Fr.p)
+            require(limbs_to_ints(got.t().contiguous()) == oracle,
+                    ("K10 oracle", variant))
+        # the product variants' function is the Montgomery product; the
+        # ablations' least work is the 256-bit product (mxunocarry's two
+        # tensor-core products, 8192 int8 operations an element, take less
+        # time at the int8 rate)
+        ops = B * (MUL_OPS if variant in mx.PRODUCTS else PRODUCT_OPS)
+        r = shape_result(
+            results, "K10", variant, B=B, max_abs_err=err,
+            ms=timing[variant]["ms"], plain_ms=plain_ms,
+            oracle_256=variant in mx.PRODUCTS or None,
+            device_ms=kernel_device_ms(fn, "mxu_mul_kernel"),
+            **bound(ops, B * 3 * ROW))
+        log(f"K10 {variant:10s} bit-exact (B={B}"
+            + (", 256 values = oracle" if variant in mx.PRODUCTS else "")
+            + f"): {r['ms']:.4f} ms a call ({fmt_ms(r['device_ms'])} on the "
+            f"device), plain {plain_ms:.4f} ms, bound {r['bound_ms']:.4g} ms")
+    return launches
+
+
 def phase3(dev, srs_dir):
     from zksnap_tpu_torch.curves.fused import ladder_tree, weighted_suffix
     from zksnap_tpu_torch.prover.plonk import keygen, verify
@@ -1177,15 +1520,26 @@ def main():
     phase2_k21(dev, rng, results)
     phase2_reduce(dev, rng, results)
     launches_k7_k8 = phase_point_batch(dev, rng, results)
+    loops = chain_loops(lib_path)
+    t_exp = time.time()
+    launches_exp = phase_experiments(dev, results, loops)
+    exp_s = time.time() - t_exp
+    log(f"experiments phase: {exp_s:.1f} s")
     # the kernels line gives K1-K6 at the k=21 path's shape (their
-    # launches are that path's) and K7, K8 at n = 2^20 (their launches
-    # their own path's); the largest error is over every shape
+    # launches are that path's), K7, K8 at n = 2^20 (their launches
+    # their own path's), K9-K11 at the experiments' default shapes (their
+    # launches the experiments path's); the largest error is over every
+    # shape of a kernel that is exact (bf16dot's relative error is held to
+    # BF16_TOL instead)
     for name, tag in (("K1", "k21"), ("K2", "k21"), ("K3", "k21"),
                       ("K4", "k21"), ("K5", "k21"), ("K6", "k21"),
-                      ("K7", "n2^20"), ("K8", "n2^20")):
+                      ("K7", "n2^20"), ("K8", "n2^20"), ("K9", "B"),
+                      ("K10", "mxu"), ("K11", "u32mul"),
+                      ("K11dot", "i8dot")):
         shapes = results[name + "_shapes"]
         results[name] = dict(shapes[tag], max_abs_err=max(
-            r["max_abs_err"] for r in shapes.values()))
+            r["max_abs_err"] for r in shapes.values()
+            if r.get("exact", True)))
 
     counters = {"K1": (mont_mul,), "K2": (mont_addsub,), "K3": (point,),
                 "K4": (bucket_scan,), "K5": (weighted_suffix,),
@@ -1239,7 +1593,10 @@ def main():
         phase_cli(work, cli_times)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    launches = dict(path_launches["PLUME voter k=21"], **launches_k7_k8)
+    launches = dict(path_launches["PLUME voter k=21"], **launches_k7_k8,
+                    K9=launches_exp["K9"], K10=launches_exp["K10"],
+                    K11=launches_exp["K11 chain"],
+                    K11dot=launches_exp["K11 dot"])
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1263,13 +1620,22 @@ def main():
                "zksnap_tpu/curves/pallas_point.py:280"),
         "K8": ("point_add_batch", "zksnap_tpu_torch/csrc/pallas_point.cu",
                "zksnap_tpu/curves/pallas_point.py:322"),
+        "K9": ("mul_limb_major (variant B)",
+               "zksnap_tpu_torch/csrc/exp_mul_variants.cu",
+               "scripts/exp_mul_variants.py:163"),
+        "K10": ("mont_mul_mxu (mxu)", "zksnap_tpu_torch/csrc/exp_mul_mxu.cu",
+                "scripts/exp_mul_mxu.py:329"),
+        "K11": ("op_chain (u32mul)", "zksnap_tpu_torch/csrc/exp_rates.cu",
+                "scripts/exp_vpu_rates.py:75"),
+        "K11dot": ("dot_chain (i8dot)", "zksnap_tpu_torch/csrc/exp_rates.cu",
+                   "scripts/exp_vpu_rates.py:102"),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k],
          **{key: results[k][key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
-         "library_ms": None}
+         "library_ms": results[k].get("library_ms")}
         for k, (name, src, rep) in meta.items()]}
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -1280,7 +1646,11 @@ def main():
                    "path_launches": path_launches,
                    "launches_k7_k8": launches_k7_k8, "ptxas": ptxas,
                    "k3_kinds": results["K3_kinds"],
-                   "shapes": {k: results[k + "_shapes"] for k in meta},
+                   "shapes": {k: results[k + "_shapes"] for k in meta
+                              if k + "_shapes" in results},
+                   "experiment_lines": results["experiment_lines"],
+                   "launches_experiments": launches_exp, "chain_loops": loops,
+                   "experiments_s": exp_s,
                    "device_ms": {k: results[k]["device_ms"] for k in meta},
                    "build_s": build_s, "total_s": time.time() - t_start,
                    "nvidia_smi": smi.stdout.strip()}, f, indent=1)

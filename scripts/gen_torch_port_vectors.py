@@ -35,12 +35,18 @@ PyTorch port (zksnap_tpu_torch) is held to without rerunning the JAX prover.
   (i) `srs_file_k7`: the sha256 of the ceremony-format file that
       `save_srs(gen_srs(7))` writes;
   (j) `state_k13`: as (h) at k=13 (lookup_bits=12), the size of the
-      protocol's rounds (scripts/protocol_demo.py).
+      protocol's rounds (scripts/protocol_demo.py);
+  (k) `exp_mul`: the six variants of scripts/exp_mul_mxu.py's
+      `make_kernel` (BN254 Fr) under jax.disable_jit() on 256 seeded pairs
+      below p (the port's oracle set, `random.Random(0)`) and 256 of all
+      16-bit limbs (numpy-seeded, 2^256 - 1 first), limb-major [16, 256]
+      uint32, each array stored as base64 of its zlib-compressed
+      little-endian bytes.
 
 Run on the CPU:  python scripts/gen_torch_port_vectors.py [part ...]
 with parts among k7, voter_k13, msm, reduce, plume, pallas_point,
-state_k15, state_k13, srs_file (all by default); the parts named replace
-their entries in the existing file.
+state_k15, state_k13, srs_file, exp_mul (all by default); the parts named
+replace their entries in the existing file.
 """
 
 import hashlib
@@ -68,8 +74,9 @@ REDUCE_CASES = ((3, 3, True), (3, 2, False))  # (c, W, signed)
 PLUME_K, PLUME_LOOKUP_BITS = 21, 14
 POINT_SEED, POINT_N = 27, 8
 STATE_K, STATE_SMALL_K, STATE_SEED = 15, 13, 20260817
+EXP_MUL_SEED, EXP_MUL_N = 28, 256
 PARTS = ("k7", "voter_k13", "msm", "reduce", "plume", "pallas_point",
-         "state_k15", "state_k13", "srs_file")
+         "state_k15", "state_k13", "srs_file", "exp_mul")
 
 
 def vk_digest(vk) -> str:
@@ -435,6 +442,64 @@ def part_srs_file() -> dict:
             data = f.read()
     return {"srs_file_k7": {"k": 7, "srs_seed": "dev", "bytes": len(data),
                             "sha256": hashlib.sha256(data).hexdigest()}}
+
+
+def pack_u32(arr) -> str:
+    import base64
+    import zlib
+
+    import numpy as np
+
+    raw = np.ascontiguousarray(arr, dtype="<u4").tobytes()
+    return base64.b64encode(zlib.compress(raw, 9)).decode()
+
+
+def exp_mul_inputs(seed: int, n: int, p: int):
+    """(a_small, b_small, a_wide, b_wide), [16, n] uint32 16-bit limbs:
+    small the n pairs below p that the port's exp_mul_mxu checks against
+    the oracle (`random.Random(0).randrange(p)`, all a's, then all b's);
+    wide every limb random from numpy's `seed` (2^256 - 1 first)."""
+    import numpy as np
+
+    from zksnap_tpu.fields.common import ints_to_limbs
+
+    rng = random.Random(0)
+    avals = [rng.randrange(p) for _ in range(n)]
+    bvals = [rng.randrange(p) for _ in range(n)]
+    nrng = np.random.default_rng(seed)
+
+    def wide():
+        x = nrng.integers(0, 1 << 16, (16, n), dtype=np.uint32)
+        x[:, 0] = 0xFFFF
+        return x
+
+    return (np.asarray(ints_to_limbs(avals)).T, np.asarray(
+        ints_to_limbs(bvals)).T, wide(), wide())
+
+
+def part_exp_mul() -> dict:
+    """K10: the JAX kernels of scripts/exp_mul_mxu.py, eagerly."""
+    import exp_mul_mxu as jmx
+    import jax.numpy as jnp
+    import numpy as np
+
+    p, n0 = jmx.FR.p, int(jmx.FR.n0)
+    a_s, b_s, a_w, b_w = exp_mul_inputs(EXP_MUL_SEED, EXP_MUL_N, p)
+    out = {}
+    for variant in ("base", "kar", "mxu", "kar+mxu", "convonly",
+                    "mxunocarry"):
+        t0 = time.time()
+        fn = jmx.make_kernel(variant, p, n0)
+        with jax.disable_jit():
+            out[variant] = {
+                part: pack_u32(np.asarray(fn(jnp.asarray(a), jnp.asarray(b),
+                                             block=EXP_MUL_N)))
+                for part, a, b in (("small", a_s, b_s), ("wide", a_w, b_w))}
+        print(f"  exp_mul {variant}: {time.time() - t0:.1f}s", flush=True)
+    return {"exp_mul": {
+        "seed": EXP_MUL_SEED, "n": EXP_MUL_N, "field": "bn254_fr",
+        "a_small": pack_u32(a_s), "b_small": pack_u32(b_s),
+        "a_wide": pack_u32(a_w), "b_wide": pack_u32(b_w), "out": out}}
 
 
 if __name__ == "__main__":

@@ -32,6 +32,8 @@ from zksnap_tpu.prover import srs as jsrs
 from zksnap_tpu.prover.keygen import Layout as JLayout
 from zksnap_tpu_torch.curves.jacobian import CurveOps
 from zksnap_tpu_torch.curves.proj import ProjOps
+from zksnap_tpu_torch.experiments import (exp_mul_mxu, exp_mul_variants,
+                                          exp_vpu_rates)
 from zksnap_tpu_torch.fields.field import PrimeField
 from zksnap_tpu_torch.poly.domain import Domain
 from zksnap_tpu_torch.prover import device_rounds, plonk, poly_device, serialize
@@ -232,7 +234,9 @@ def test_instance_commitment_matches_jax(port, jax_verifier, monkeypatch,
     CurveOps.generator, ProjOps.identity, Domain.powers_of, Domain.twiddles,
     Domain.twiddles_inv, poly_device.pow_series_uncached,
     poly_device.pow_series, poly_device.to_device_poly,
-    device_rounds._omega_pows_dev, load_srs, serialize.load_pk],
+    device_rounds._omega_pows_dev, load_srs, serialize.load_pk,
+    exp_vpu_rates.make_chain, exp_vpu_rates.make_dot,
+    exp_mul_variants.make_variant, exp_mul_mxu.make_kernel],
     ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     """The public entry points and tensor constructors run on the CUDA

@@ -22,8 +22,9 @@ import subprocess
 
 CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 SOURCES = ("mont.cu", "point.cu", "bucket_scan.cu", "reduce.cu",
-           "pallas_point.cu")
-HEADERS = ("field.cuh", "point.cuh")
+           "pallas_point.cu", "exp_rates.cu", "exp_mul_variants.cu",
+           "exp_mul_mxu.cu")
+HEADERS = ("field.cuh", "point.cuh", "mont16.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(__file__), "..", "build",
                          "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -43,6 +44,10 @@ _SIGNATURES = {
     "zk_jac_dbl": [_P] * 6 + [_LL, _P, _P],
     "zk_staged_add_a": [_P, _P, _LL, _P, _P],
     "zk_staged_add_b": [_P, _P, _LL, _P, _P],
+    "zk_exp_chain": [_I, _P, _P, _P, _LL, _I, _P],
+    "zk_exp_dot": [_I, _P, _P, _P, _I, _I, _P],
+    "zk_exp_mul16": [_P, _P, _P, _LL, _I, _I, _P, _P],
+    "zk_exp_mxu_mul": [_I, _P, _P, _P, _LL, _P, _P, _P, _P],
 }
 
 
@@ -137,6 +142,19 @@ def mod_ptr(p: int) -> int:
     return ctypes.addressof(modulus_words(p))
 
 
+@functools.cache
+def mod16_words(p: int) -> ctypes.Array:
+    """Host array of 17 uint32: p as 16 limbs of 16 bits and the 16-bit
+    n0 = -p^-1 mod 2^16 -- the experiment kernels' Mod16 struct."""
+    n0 = (-pow(p, -1, 1 << 16)) % (1 << 16)
+    words = [(p >> (16 * i)) & 0xFFFF for i in range(16)] + [n0]
+    return (ctypes.c_uint32 * 17)(*words)
+
+
+def mod16_ptr(p: int) -> int:
+    return ctypes.addressof(mod16_words(p))
+
+
 def stream_of(t) -> int:
     import torch
 
@@ -156,5 +174,17 @@ def rows(t, n: int) -> int:
                          f"expected {n} rows of 16 limbs")
     if t.data_ptr() % 16:
         raise ValueError("kernel operand rows must be 16-byte aligned")
+    return t.data_ptr()
+
+
+def operand(t, dtype, shape) -> int:
+    """Check a contiguous CUDA operand of `dtype` and `shape` and return
+    its pointer."""
+    if not (t.dtype == dtype and t.is_cuda and t.is_contiguous()):
+        raise ValueError(f"kernel operand must be contiguous {dtype} on a "
+                         f"CUDA device, got {t.dtype} on {t.device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"kernel operand of shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
     return t.data_ptr()
 
