@@ -6,7 +6,9 @@ CUDA GPU and check it: the quickest proof that the port still starts.
 Phases:
   1. build the eleven hand-written CUDA kernels from csrc/ (one nvcc for
      each source, all started together, timed; ptxas registers and
-     spills logged; the main loop of each K11 chain from cuobjdump -sass);
+     spills logged; the main loop of each K11 chain from cuobjdump -sass;
+     K4's and K5's kernels' registers, stack frames and SASS instruction
+     mix);
   2. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes, edge cases included, bit-exact, and time both:
      the k=13 path's (n = 8192 field elements and points; the fixed-base
@@ -14,7 +16,8 @@ Phases:
      2^21 rows; padd over 32768 lanes; a variable-base pass of 2 * 2^21
      signed-digit pairs, M = 32768 lanes x K = 128 steps; the fused
      reduction at W = 16 windows of B = 2^15 buckets and c = 16) and
-     K=7's fused reduction (W = 32 windows of 128, c = 8); then K7 and
+     K=7's fused reduction (W = 32 windows of 128, c = 8), K4's and K5's
+     Jacobian branches (b3 = 0) at the k=13 and K=7 shapes; then K7 and
      K8 through their own entry points (point_add_batch,
      point_dbl_batch, point_add_staged; the only path that runs them),
      once each at n = 2^20 with the counts read, then against their plain
@@ -47,8 +50,8 @@ Phases:
      one), a cold and a warm proof, verification, a tampered proof
      rejected, the peak device memory of keygen and of a proof; the
      launch counts of K1-K6 over it, each required > 0; one more warm
-     proof under torch.profiler; then one 2^21 commit fused and unfused,
-     the same point;
+     proof under torch.profiler (K4's and K5's kernels in it apart); then
+     one 2^21 commit fused and unfused, the same point;
   7. a ceremony-format SRS at k=15 written, read back (curve, pairing
      and Lagrange-sum checks) and compared; a corrupted file refused;
   8. the protocol of scripts/protocol_demo.py at its defaults: two rounds
@@ -68,8 +71,10 @@ Phase 2's per-call times come from CUDA events over repeated calls and
 include the host's launch path; the device time per launch comes from
 the profiler.  Each kernel's bound is the larger of the integer
 operations that its function needs at the H100's INT32 rate and its
-bytes (inputs read once, outputs written once) at 3.35 TB/s.  The
-kernels line gives K1-K6 at the k=21 path's shape, with that path's
+bytes (inputs read once, outputs written once) at 3.35 TB/s; the point
+formulas (K3-K8) count their products on the IMAD pipe and their adds on
+the ALU pipe apart, and take the slowest of the two pipes and the issue.
+The kernels line gives K1-K6 at the k=21 path's shape, with that path's
 launches, K7, K8 at n = 2^20 with their own path's, and K9 (variant B),
 K10 (mxu), K11 (u32mul and i8dot) at the experiments' shapes with the
 experiments path's, which count every variant or kind that launches the
@@ -108,20 +113,25 @@ FUSED = "ZKSNAP_TPU_FUSED_REDUCE"
 # The bound model.  INT32 rate of an H100 SXM: 132 SMs x 64 INT32 lanes
 # (Hopper white paper) at the 1.98 GHz that its 67 TFLOP/s float32 (data
 # sheet) implies; HBM3 at 3.35 TB/s (data sheet).  A Montgomery product
-# is 8 rounds of 16 32x32->64 multiply-adds (two 32-bit operations each)
-# and one 32-bit multiply; an add or subtract is 8 word adds, 8 word
-# subtracts and 8 selects.  The point formulas count their products and
-# adds for b3 = 9 (BN254).
+# is 8 rounds of 16 32x32->64 multiply-adds (two 32-bit results each) and
+# one 32-bit multiply: MUL_OPS operations at the INT32 rate for K1, K9 and
+# K10.  The point formulas (K3-K8) count each pipe apart instead
+# (formula_bound): a product's MUL_OPS multiply results on the IMAD pipe
+# and MUL_ALU operations on the integer ALU pipe (its conditional
+# subtract: 8 word subtracts, 8 selects), an add or subtract ADD_OPS on
+# the ALU pipe (8 word adds, 8 word subtracts, 8 selects).  Each formula
+# is (products, adds) for b3 = 9 (BN254).
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 ROW = 64  # bytes of one field element at rest (16 int32 limbs)
 MUL_OPS = 8 * (16 * 2 + 1)
+MUL_ALU = 16
 ADD_OPS = 24
-PADD_OPS = 12 * MUL_OPS + 27 * ADD_OPS
-PMADD_OPS = 11 * MUL_OPS + 21 * ADD_OPS
-PDBL_OPS = 8 * MUL_OPS + 13 * ADD_OPS
-JADD_OPS = 16 * MUL_OPS + 13 * ADD_OPS  # add-2007-bl; P == Q adds a JDBL
-JDBL_OPS = 7 * MUL_OPS + 14 * ADD_OPS
+PADD = (12, 27)
+PMADD = (11, 21)
+PDBL = (8, 13)
+JADD = (16, 13)  # add-2007-bl; P == Q adds a JDBL
+JDBL = (7, 14)
 
 
 # The experiments' rates: the tensor cores' dense int8 and bf16 rates
@@ -152,6 +162,18 @@ def bound(ops: float, nbytes: float, rate: float = INT32_OPS_PER_S) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return dict(bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def formula_bound(work, nbytes: float) -> dict:
+    """bound() of point formulas, `work` a list of (count, (products,
+    adds)): the IMAD pipe, the ALU pipe (64 lanes an SM a clock each) and
+    the issue (128) each spend the formulas' instructions at their own
+    rate, and the slowest decides."""
+    imad = sum(n * m * MUL_OPS for n, (m, _) in work)
+    alu = sum(n * (m * MUL_ALU + a * ADD_OPS) for n, (m, a) in work)
+    clocks = max(imad / PIPES["imad"][0], alu / PIPES["alu"][0],
+                 (imad + alu) / ISSUE_LANES)
+    return bound(clocks, nbytes, SM_CLOCKS_PER_S)
 
 
 def log(*a):
@@ -353,7 +375,8 @@ def time_field_kernels(results, tag: str, F, a, b, errs):
 
 def check_bucket_scan(results, tag: str, Qa, ids, M: int):
     """K4 over the sorted stream Qa with bucket ids `ids` (host), M lanes:
-    bit-exact against its plain version, timed."""
+    bit-exact against its plain version in the RCB branch, timed; at a
+    small shape ("k13") the Jacobian branch (b3 = 0) too, untimed."""
     from zksnap_tpu_torch.curves import fused
     from zksnap_tpu_torch.curves.native import BN254_G1
     from zksnap_tpu_torch.fields import bn254_fq
@@ -369,18 +392,26 @@ def check_bucket_scan(results, tag: str, Qa, ids, M: int):
     err = max_abs_err(got, want)
     require(err == 0, ("K4", tag, err))
     del got, want
+    jac_err = None
+    if tag == "k13":
+        jac_err = max_abs_err(fused.bucket_scan(Qa, flags, M, K, p, 0),
+                              fused.bucket_scan_plain(Qa, flags, M, K, p, 0))
+        require(jac_err == 0, ("K4 Jacobian", tag, jac_err))
     r = shape_result(
-        results, "K4", tag, M=M, K=K, max_abs_err=err, plain_ms=plain_ms,
+        results, "K4", tag, M=M, K=K, max_abs_err=max(err, jac_err or 0),
+        jacobian_max_abs_err=jac_err, plain_ms=plain_ms,
         ms=cuda_ms(lambda: fused.bucket_scan(Qa, flags, M, K, p, b3), 20),
         device_ms=kernel_device_ms(
             lambda: fused.bucket_scan(Qa, flags, M, K, p, b3),
             "bucket_scan_kernel"),
         # the adds this stream needs: every position but a segment's first
-        **bound((pairs - int(flags.sum())) * PMADD_OPS,
-                pairs * (3 * ROW + 1) + pairs * 3 * ROW))
-    log(f"K4 bucket scan bit-exact ({tag}, M={M} lanes x K={K} steps): "
-        f"kernel {r['ms']:.4f} ms a call ({fmt_ms(r['device_ms'])} on the "
-        f"device), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4g} ms")
+        **formula_bound([(pairs - int(flags.sum()), PMADD)],
+                        pairs * (3 * ROW + 1) + pairs * 3 * ROW))
+    log(f"K4 bucket scan bit-exact ({tag}, M={M} lanes x K={K} steps"
+        + (", Jacobian too" if jac_err is not None else "")
+        + f"): kernel {r['ms']:.4f} ms a call ({fmt_ms(r['device_ms'])} on "
+        f"the device), plain {r['plain_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4g} ms")
 
 
 def phase2(dev, rng, results):
@@ -443,7 +474,7 @@ def phase2(dev, rng, results):
     shape_result(results, "K3", "k13", n=n, max_abs_err=k3_err,
                  ms=k3_ms["padd"][0], plain_ms=k3_ms["padd"][1],
                  device_ms=k3_ms["padd"][2],
-                 **bound(n * PADD_OPS, n * 9 * ROW))
+                 **formula_bound([(n, PADD)], n * 9 * ROW))
     results["K3_kinds"] = {kind: {"ms": ms, "plain_ms": pms, "device_ms": dms}
                            for kind, (ms, pms, dms) in k3_ms.items()}
 
@@ -502,7 +533,7 @@ def phase2_k21(dev, rng, results):
         plain_ms=cuda_ms(lambda: fused.point_plain("padd", ins, Fq.p, b3), 2),
         device_ms=kernel_device_ms(lambda: fused.point("padd", ins, Fq.p, b3),
                                    "point_kernel"),
-        **bound(m * PADD_OPS, m * 9 * ROW))
+        **formula_bound([(m, PADD)], m * 9 * ROW))
     log(f"K3 padd  bit-exact (k21, n={m}): kernel {r['ms']:.4f} ms a call "
         f"({fmt_ms(r['device_ms'])} on the device), plain "
         f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4g} ms")
@@ -517,10 +548,11 @@ def phase2_k21(dev, rng, results):
 REDUCE_SHAPES = (("k21", 16, 16), ("k7", 8, 32))
 
 
-def reduce_inputs(F, curve, n: int, rng, dev):
-    """n projective points (x*l : y*l : l) on the card, random multiples
-    of a pool with random l; rows 0, 1 are identities (0 : l : 0), row 3
-    is -(row 2), rows 4 and 5 are equal."""
+def reduce_inputs(F, curve, n: int, rng, dev, jacobian: bool = False):
+    """n points on the card, random multiples of a pool with random l:
+    projective (x*l : y*l : l), or Jacobian (x*l^2 : y*l^3 : l); rows 0, 1
+    are identities (0 : l : 0), row 3 is -(row 2), rows 4 and 5 are
+    equal."""
     from zksnap_tpu_torch.curves.native import AffinePoint
 
     g = AffinePoint.generator(curve)
@@ -534,7 +566,11 @@ def reduce_inputs(F, curve, n: int, rng, dev):
     x[3] = x[2]
     x[5], y[5] = x[4], y[4]
     lam = F.to_mont([rng.randrange(1, F.p) for _ in range(n)], dev)
-    X, Y = F.mul(x, lam), F.mul(y, lam)
+    lx = ly = lam
+    if jacobian:
+        lx = F.mul(lam, lam)
+        ly = F.mul(lx, lam)
+    X, Y = F.mul(x, lx), F.mul(y, ly)
     X[:2] = 0
     Y[:2] = lam[:2]
     Z = lam.clone()
@@ -545,7 +581,8 @@ def reduce_inputs(F, curve, n: int, rng, dev):
 def phase2_reduce(dev, rng, results):
     """K5 and K6 against their plain versions at the k=21 and K=7 shapes
     of the fused reduction, edge cases included: identity buckets, a
-    window of identities, P beside -P, equal buckets."""
+    window of identities, P beside -P, equal buckets; at K=7 K5's
+    Jacobian branch (b3 = 0) too, untimed."""
     from zksnap_tpu_torch.curves import fused
     from zksnap_tpu_torch.curves.native import BN254_G1
     from zksnap_tpu_torch.fields import bn254_fq
@@ -554,24 +591,32 @@ def phase2_reduce(dev, rng, results):
     b3 = 3 * BN254_G1.b
     for tag, c, W in REDUCE_SHAPES:
         B = 1 << (c - 1)
-        flat = reduce_inputs(F, BN254_G1, W * B, rng, dev)
-        for a in flat:  # window 1: all identities
-            a[B : 2 * B] = a[0]
-        got = fused.weighted_suffix(flat, B, F.p, b3)
-        want, plain_ms = timed(
-            lambda: fused.weighted_suffix_plain(flat, B, F.p, b3))
-        err = max_abs_err(got, want)
-        require(err == 0, ("K5", tag, err))
+        branches = ((b3, False), (0, True)) if tag == "k7" else ((b3, False),)
+        errs = {}
+        for b, jac in branches:
+            flat_b = reduce_inputs(F, BN254_G1, W * B, rng, dev, jac)
+            for a in flat_b:  # window 1: all identities
+                a[B : 2 * B] = a[0]
+            want, ms = timed(
+                lambda: fused.weighted_suffix_plain(flat_b, B, F.p, b))
+            errs[b] = max_abs_err(fused.weighted_suffix(flat_b, B, F.p, b),
+                                  want)
+            require(errs[b] == 0, ("K5", tag, "b3", b, errs[b]))
+            del want
+            if b:
+                flat, plain_ms = flat_b, ms
         # the function's work: a sequential double suffix, two padd a
-        # bucket (the kernel's rounds do 2 * log2(B) times as many)
+        # bucket (the kernels do 4 - 2/C and the carries)
         adds = 2 * W * B
         k5 = shape_result(
-            results, "K5", tag, W=W, B=B, max_abs_err=err, plain_ms=plain_ms,
+            results, "K5", tag, W=W, B=B, C=fused.suffix_chunk(W * B, B),
+            max_abs_err=max(errs.values()),
+            jacobian_max_abs_err=errs.get(0), plain_ms=plain_ms,
             ms=cuda_ms(lambda: fused.weighted_suffix(flat, B, F.p, b3), 5),
             device_ms=kernel_device_ms(
-                lambda: fused.weighted_suffix(flat, B, F.p, b3),
-                "weighted_suffix_kernel", reps=3),
-            **bound(adds * PADD_OPS, W * B * 6 * ROW))
+                lambda: fused.weighted_suffix(flat, B, F.p, b3), K5_KERNELS,
+                reps=3, per_call=True),
+            **formula_bound([(adds, PADD)], W * B * 6 * ROW))
         wsums = reduce_inputs(F, BN254_G1, W, rng, dev)
         got = fused.ladder_tree(wsums, c, W, F.p, b3)
         want, plain_ms = timed(
@@ -587,8 +632,8 @@ def phase2_reduce(dev, rng, results):
             device_ms=kernel_device_ms(
                 lambda: fused.ladder_tree(wsums, c, W, F.p, b3),
                 "ladder_tree_kernel"),
-            **bound(c * (W - 1) * PDBL_OPS + (W - 1) * PADD_OPS,
-                    (W + 1) * 3 * ROW))
+            **formula_bound([(c * (W - 1), PDBL), (W - 1, PADD)],
+                            (W + 1) * 3 * ROW))
         for name, r in (("K5 weighted suffix", k5),
                         ("K6 ladder and tree", k6)):
             log(f"{name} bit-exact ({tag} shape, "
@@ -654,21 +699,21 @@ def phase_point_batch(dev, rng, results) -> dict:
         P, Q, same = point_batch_inputs(n, rng, dev)
         # the function's own work: the add, and a dbl on the lanes where
         # P == Q (the kernels double every lane; that is their cost)
-        add_ops = n * JADD_OPS + same * JDBL_OPS
-        forms = {  # name: (entry point, plain version, kernels, ops, rows)
+        add_work = [(n, JADD), (same, JDBL)]
+        forms = {  # name: (entry point, plain version, kernels, work, rows)
             "add": (lambda: pp.point_add_batch(P, Q, p, n0),
                     lambda: pp.point_add_batch_plain(P, Q, p, n0),
-                    ("jac_add_kernel",), add_ops, 9),
+                    ("jac_add_kernel",), add_work, 9),
             "dbl": (lambda: pp.point_dbl_batch(P, p, n0),
                     lambda: pp.point_dbl_batch_plain(P, p, n0),
-                    ("jac_dbl_kernel",), n * JDBL_OPS, 6),
+                    ("jac_dbl_kernel",), [(n, JDBL)], 6),
             # the plain version and the bound are the add's: the split
             # changes no value, and the intermediates are the kernel's own
             # traffic, not the function's
             "staged": (lambda: pp.point_add_staged(P, Q, p, n0),
                        lambda: pp.point_add_batch_plain(P, Q, p, n0),
                        ("staged_add_a_kernel", "jac_dbl_kernel",
-                        "staged_add_b_kernel"), add_ops, 9)}
+                        "staged_add_b_kernel"), add_work, 9)}
         if launches is None:
             for fn in (pp.point_add_batch, pp.point_dbl_batch,
                        pp.point_add_staged):
@@ -686,7 +731,7 @@ def phase_point_batch(dev, rng, results) -> dict:
         require(max_abs_err(got["staged"], got["add"]) == 0,
                 ("K7 staged != K8 add", tag))
         rows = {}
-        for name, (fn, plain, syms, ops, nrows) in forms.items():
+        for name, (fn, plain, syms, work, nrows) in forms.items():
             want, plain_ms = timed(plain)
             err = max_abs_err(got[name], want)
             require(err == 0, ("K7/K8", name, tag, err))
@@ -695,7 +740,7 @@ def phase_point_batch(dev, rng, results) -> dict:
                               ms=cuda_ms(fn, 20),
                               device_ms=kernel_device_ms(fn, syms,
                                                          per_call=True),
-                              **bound(ops, n * nrows * ROW))
+                              **formula_bound(work, n * nrows * ROW))
             r = rows[name]
             log(f"{'K7' if name == 'staged' else 'K8'} {name:6s} bit-exact "
                 f"({tag}): {r['ms']:.4f} ms a call ({fmt_ms(r['device_ms'])}"
@@ -721,6 +766,55 @@ def loop_control(op: str, args: str) -> bool:
             or (op in ("IADD3", "VIADD", "IADD") and "0x" in args))
 
 
+def sass_functions(lib_path: str) -> dict:
+    """{function name: [(address, opcode with its modifiers, operands)]}
+    of every function in `cuobjdump -sass` of the kernel library."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    require(tool is not None, "cuobjdump, from which the SASS is read")
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9.]*)\s*([^;]*);", line)
+        if cur is not None and m:
+            cur.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    return funcs
+
+
+def loop_spans(instrs) -> list:
+    """(first, last) addresses of each loop of a listing: the span of
+    each backward branch."""
+    spans = []
+    for addr, op, args in instrs:
+        target = re.findall(r"0x[0-9a-f]+", args)
+        if (op.split(".")[0] == "BRA" and target
+                and int(target[-1], 16) <= addr):
+            spans.append((int(target[-1], 16), addr))
+    return spans
+
+
+def main_loop(instrs, control=loop_control) -> list:
+    """The opcodes (with modifiers) of a function's main loop, those that
+    `control` calls the loop's control left out: the span of the backward
+    branch with the most instructions (None when the function has no
+    loop)."""
+    best = None
+    for lo, hi in loop_spans(instrs):
+        body = [o for ad, o, a in instrs
+                if lo <= ad <= hi and not control(o.split(".")[0], a)]
+        if best is None or len(body) > len(best):
+            best = body
+    return best
+
+
 def chain_loops(lib_path: str) -> dict:
     """{chain kind: {opcode: count}}: the body of each K11 chain kernel's
     main loop in `cuobjdump -sass`, its control left out.  That loop is
@@ -728,41 +822,101 @@ def chain_loops(lib_path: str) -> dict:
     runs vr.CHAIN_UNROLL steps a trip."""
     from zksnap_tpu_torch.experiments import exp_vpu_rates as vr
 
-    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "cuobjdump")
-    if not os.path.exists(tool):
-        tool = shutil.which("cuobjdump")
-    require(tool is not None, "cuobjdump, from which K11's bounds are read")
-    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
-                         text=True, check=True).stdout
-    funcs, cur = {}, None
-    for line in out.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            k = re.search(r"op_chain_kernelILi(\d)E", m.group(1))
-            cur = vr.CHAIN_KINDS[int(k.group(1))] if k else None
-            if cur:
-                funcs[cur] = []
-            continue
-        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
-                      r"([A-Z][A-Z0-9]*)\S*\s*([^;]*);", line)
-        if cur and m:
-            funcs[cur].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    funcs = {}
+    for name, instrs in sass_functions(lib_path).items():
+        k = re.search(r"op_chain_kernelILi(\d)E", name)
+        if k:
+            funcs[vr.CHAIN_KINDS[int(k.group(1))]] = instrs
     loops = {}
     for kind in vr.CHAIN_KINDS:
-        best = None
-        for addr, op, args in funcs.get(kind, ()):
-            target = re.findall(r"0x[0-9a-f]+", args)
-            if op != "BRA" or not target or int(target[-1], 16) > addr:
-                continue
-            lo = int(target[-1], 16)
-            body = [o for ad, o, a in funcs[kind]
-                    if lo <= ad <= addr and not loop_control(o, a)]
-            if best is None or len(body) > len(best):
-                best = body
+        best = main_loop(funcs.get(kind, ()))
         require(best, ("no loop in the SASS of K11", kind))
+        best = [o.split(".")[0] for o in best]
         loops[kind] = {o: best.count(o) for o in sorted(set(best))}
     return loops
+
+
+# The SASS read for the bucket scan and the weighted suffix: how many of
+# a function's instructions go to each pipe or memory space.
+SASS_GROUPS = {"IMAD*": ("IMAD",),
+               "IADD3/LOP3/SHF/SEL": ("IADD3", "LOP3", "SHF", "SEL"),
+               "LDL/STL": ("LDL", "STL"), "LDG/STG": ("LDG", "STG"),
+               "LDS/STS": ("LDS", "STS"), "CALL": ("CALL",)}
+
+
+def sass_mix(ops) -> dict:
+    """{group of SASS_GROUPS: count, "all": count, "opcodes": {...}}."""
+    bases = [o.split(".")[0] for o in ops]
+    mix = {g: sum(bases.count(b) for b in names)
+           for g, names in SASS_GROUPS.items()}
+    mix["all"] = len(ops)
+    mix["opcodes"] = {o: ops.count(o) for o in sorted(set(ops))}
+    return mix
+
+
+def kernel_sass(lib_path: str, fragments) -> dict:
+    """For each kernel whose name holds one of `fragments`: the mix of its
+    main loop, of each loop inside it (the rounds of a product stage, for
+    example, each run many times a trip of the main loop) and of each
+    subroutine of its listing.  A function that is
+    not inlined is compiled into the kernel's listing after its EXIT and
+    reached by CALL: the subroutines start at the listing's first address
+    and at each CALL target, and each is listed with its call sites."""
+    out = {}
+    for name, instrs in sass_functions(lib_path).items():
+        if not any(f in name for f in fragments):
+            continue
+        calls = [int(re.findall(r"0x[0-9a-f]+", a)[-1], 16)
+                 for _, o, a in instrs if o.startswith("CALL")]
+        starts = sorted({instrs[0][0], *calls})
+        subs = {}
+        for lo, hi in zip(starts, starts[1:] + [1 << 62]):
+            body = [(ad, o, a) for ad, o, a in instrs if lo <= ad < hi]
+            subs[hex(lo)] = dict(sass_mix([o for _, o, _ in body]),
+                                 call_sites=calls.count(lo))
+        own = [i for i in instrs if i[0] < (starts + [1 << 62])[1]]
+        loop = main_loop(own, lambda op, args: op == "BRA")
+        spans = sorted(loop_spans(own), key=lambda s: s[0] - s[1])
+        inner = [sass_mix([o for ad, o, _ in own
+                           if lo <= ad <= hi and o.split(".")[0] != "BRA"])
+                 for lo, hi in spans[1:]
+                 if spans[0][0] <= lo and hi <= spans[0][1]]
+        out[name] = {"loop": None if loop is None else sass_mix(loop),
+                     "inner_loops": inner, "subroutines": subs}
+    return out
+
+
+# K5's kernels: the chunk totals, the carries and the chunk reruns; with
+# K4's, the kernels whose ptxas lines and SASS the run reports
+K5_KERNELS = ("suffix_chunk_total_kernel", "suffix_carry_kernel",
+              "suffix_chunk_kernel")
+SCAN_KERNELS = ("bucket_scan_kernel",) + K5_KERNELS
+
+
+def ptxas_entries(log_text: str) -> dict:
+    """{kernel: {"registers", "stack_bytes", "spill_stores",
+    "spill_loads"}} from the build's `-Xptxas -v` output."""
+    out, entry, props = {}, None, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = props = m.group(1)
+            out[entry] = {}
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and entry and props == entry:
+            out[entry].update(stack_bytes=int(m.group(1)),
+                              spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry]["registers"] = int(m.group(1))
+    return out
 
 
 def chain_step_rate(body: dict, unroll: int) -> float:
@@ -1230,10 +1384,15 @@ def profile_prove(pk, inst, times):
     times["profiled_prove_s"] = wall
     times["device_busy_s"] = busy
     times["device_top"] = dict(top)
+    times["k4_k5_device"] = {k: v for k, v in by_name.items()
+                             if any(s in k for s in SCAN_KERNELS)}
     log(f"voter k={pk.vk.k}: warm prove under the profiler {wall:.3f} s, device "
         f"busy {busy:.3f} s ({100 * busy / wall:.1f}%); "
         + ("; ".join(f"{k[:40]} x{v[0]} {v[1]:.1f} ms" for k, v in top)
            if top else "no device activity seen: not measured"))
+    log("  K4/K5 in it: " + "; ".join(
+        f"{k.split('(')[0]} x{v[0]} {v[1]:.1f} ms"
+        for k, v in times["k4_k5_device"].items()))
 
 
 def phase_ceremony_srs(dev, work, times, k: int = 15):
@@ -1508,11 +1667,19 @@ def main():
     ptxas = []
     with open(os.path.join(os.path.dirname(lib_path),
                            f"build_{kernels.source_hash()}.log")) as f:
-        for line in f:
-            if any(w in line for w in ("Compiling entry function",
-                                       "registers", "spill")):
-                ptxas.append(line.strip())
-                log("  ptxas:", line.strip())
+        build_log = f.read()
+    for line in build_log.splitlines():
+        if any(w in line for w in ("Compiling entry function", "registers",
+                                   "spill")):
+            ptxas.append(line.strip())
+            log("  ptxas:", line.strip())
+    scan_ptxas = {k: v for k, v in ptxas_entries(build_log).items()
+                  if any(s in k for s in SCAN_KERNELS)}
+    scan_sass = kernel_sass(lib_path, SCAN_KERNELS)
+    for name, v in scan_sass.items():
+        log(f"  K4/K5 {name}: ptxas {scan_ptxas.get(name)}; main loop "
+            + str({g: n for g, n in (v["loop"] or {}).items()
+                   if g != "opcodes"}))
 
     rng = random.Random(20261016)
     results = {}
@@ -1645,6 +1812,7 @@ def main():
                    "server_k13": serving, "cli_state_k15": cli_times,
                    "path_launches": path_launches,
                    "launches_k7_k8": launches_k7_k8, "ptxas": ptxas,
+                   "k4_k5_ptxas": scan_ptxas, "k4_k5_sass": scan_sass,
                    "k3_kinds": results["K3_kinds"],
                    "shapes": {k: results[k + "_shapes"] for k in meta
                               if k + "_shapes" in results},

@@ -1,0 +1,196 @@
+"""Time the port's K4 (bucket scan) and K5 (weighted suffix) in two
+checkouts on one card, in turns, at the k=21 path's shapes and at the
+small ones (K4 at k=13, K5 at K=7).
+
+    python3 scripts/torch_kernel_ab.py OTHER_DIR [--out chiprun_out/ab.json]
+
+OTHER_DIR holds another checkout's `zksnap_tpu_torch` (for example the
+parent commit: `git archive <commit> zksnap_tpu_torch | tar -x -C
+build/parent`).  Each turn is a process of its own with one checkout
+first on sys.path: it builds that checkout's kernels (kept in the
+checkout's own build directory), makes the same seeded inputs as
+chip_smoke.py's k=21 shapes (K4: a variable-base pass of 2 x 2^21
+signed-digit pairs, M = 32768 lanes x K = 128 steps; K5: W = 16 windows
+of B = 2^15 bucket sums, identities and P beside -P among them), and
+the small shapes (K4: the k=13 fixed-base stream, 16 x 8192 pairs over
+M = 32768 lanes x K = 4 steps; K5: W = 32 windows of B = 128), and
+calls the checkout's own `bucket_scan` and `weighted_suffix`: CUDA events
+over repeated calls, and the profiler's device time of each kernel, and
+of K4 at 1 to 128 steps a lane; it
+also reads the kernels' ptxas lines and SASS mix (chip_smoke.py's
+`ptxas_entries` and `kernel_sass`; cuobjdump is required).  The
+turns run OTHER, this tree, this tree, OTHER.  K4's outputs must be the
+same bytes in every turn; K5's the same points (X1 Z2 = X2 Z1 and
+Y1 Z2 = Y2 Z1), since a redesign may add in another order.  Device
+times are given for each kernel: ms a call and launches a call.  Prints one
+JSON line with every turn and the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import importlib.util
+import json
+import os
+import random
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# K4's and K5's kernels, by the names of either checkout (K5 was one
+# `weighted_suffix_kernel` before its chunked form)
+SCAN_NAMES = ("bucket_scan_kernel", "weighted_suffix_kernel",
+              "suffix_chunk_total_kernel", "suffix_carry_kernel",
+              "suffix_chunk_kernel")
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def turn(tree: str, k5_out: str) -> dict:
+    """One turn in this process: `tree`'s package, timed."""
+    sys.path.insert(0, tree)
+    import torch
+
+    cs = _chip_smoke()
+    from zksnap_tpu_torch import kernels
+    from zksnap_tpu_torch.curves import fused
+    from zksnap_tpu_torch.curves.native import BN254_G1
+    from zksnap_tpu_torch.fields import bn254_fq
+
+    pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(
+        fused.__file__)))
+    assert os.path.samefile(pkg_root, tree), (pkg_root, tree)
+    lib = kernels.build()
+    kernels.library()
+    with open(os.path.join(os.path.dirname(lib),
+                           f"build_{kernels.source_hash()}.log")) as f:
+        ptxas = {k: v for k, v in cs.ptxas_entries(f.read()).items()
+                 if any(s in k for s in SCAN_NAMES)}
+    sass = cs.kernel_sass(lib, SCAN_NAMES)
+    dev = torch.device("cuda", 0)
+    Fq, b3 = bn254_fq(), 3 * BN254_G1.b
+    rng = random.Random(20261017)
+    gen = torch.Generator().manual_seed(20261017)
+    _, _, Qa = cs.point_inputs(BN254_G1, Fq, 8192, rng, dev, False)
+    M, K = 32768, 128
+    idx = torch.randint(0, 8192, (M * K,), generator=gen).to(dev)
+    pts = tuple(a[idx] for a in Qa)
+    ids = torch.sort(torch.randint(0, 2 * (1 << 15) + 1, (M * K,),
+                                   generator=gen))[0]
+    flags = torch.cat([torch.ones(1, dtype=torch.bool),
+                       ids[1:] != ids[:-1]]).to(dev)
+    W, B = 16, 1 << 15
+    flat = cs.reduce_inputs(Fq, BN254_G1, W * B, rng, dev)
+    # the small shapes: the k=13 fixed-base stream, the K=7 windows
+    _, _, Qs = cs.point_inputs(BN254_G1, Fq, 16 * 8192, rng, dev, False)
+    ids_s = torch.sort(torch.randint(0, (1 << 15) + 1, (16 * 8192,),
+                                     generator=gen))[0]
+    flags_s = torch.cat([torch.ones(1, dtype=torch.bool),
+                         ids_s[1:] != ids_s[:-1]]).to(dev)
+    W_s, B_s = 32, 128
+    flat_s = cs.reduce_inputs(Fq, BN254_G1, W_s * B_s, rng, dev)
+    calls = {
+        "k4": (lambda: fused.bucket_scan(pts, flags, M, K, Fq.p, b3), 10),
+        "k5": (lambda: fused.weighted_suffix(flat, B, Fq.p, b3), 5),
+        "k4_k13": (lambda: fused.bucket_scan(Qs, flags_s, M, 4, Fq.p, b3),
+                   50),
+        "k5_k7": (lambda: fused.weighted_suffix(flat_s, B_s, Fq.p, b3), 50)}
+    h = hashlib.sha256()
+    for key in ("k4", "k4_k13"):
+        for a in calls[key][0]():
+            h.update(a.cpu().numpy().tobytes())
+    torch.save([[a.cpu() for a in calls[key][0]()] for key in ("k5", "k5_k7")],
+               k5_out)
+    out = {"tree": tree, "ptxas": ptxas, "sass": sass,
+           "k4_sha256": h.hexdigest()}
+    for key, (fn, reps) in calls.items():
+        _, by = cs.device_time(lambda: [fn() for _ in range(reps)])
+        out[f"{key}_ms"] = cs.cuda_ms(fn, reps)
+        # each kernel's device ms a call and launches a call
+        out[f"{key}_device_ms"] = {
+            k: [v[1] / reps, v[0] / reps] for k, v in by.items()
+            if any(n in k for n in SCAN_NAMES)}
+    # K4's device ms a launch against its steps a lane (M lanes, the
+    # first M * K pairs of the k=21 stream): its fixed cost a launch
+    # apart from its cost a step
+    out["k4_by_steps"] = {}
+    for steps in (1, 2, 4, 8, 16, 32, 64, 128):
+        n = M * steps
+        sub = tuple(a[:n] for a in pts)
+        _, by = cs.device_time(lambda: [
+            fused.bucket_scan(sub, flags[:n], M, steps, Fq.p, b3)
+            for _ in range(20)])
+        out["k4_by_steps"][steps] = sum(
+            v[1] for k, v in by.items() if "bucket_scan" in k) / 20
+    return out
+
+
+def same_points(a, b) -> bool:
+    """Two projective point lists on the card are the same points."""
+    import torch
+
+    from zksnap_tpu_torch.fields import bn254_fq
+    from zksnap_tpu_torch.fields.pallas_mont import mont_mul
+
+    p = bn254_fq().p
+    dev = torch.device("cuda", 0)
+    (x1, y1, z1), (x2, y2, z2) = ([t.to(dev) for t in a],
+                                  [t.to(dev) for t in b])
+    return bool(torch.equal(mont_mul(x1, z2, p), mont_mul(x2, z1, p))
+                and torch.equal(mont_mul(y1, z2, p), mont_mul(y2, z1, p))
+                and torch.equal(z1.eq(0).all(-1), z2.eq(0).all(-1)))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other")
+    ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
+                                                  "ab.json"))
+    ap.add_argument("--turn", help=argparse.SUPPRESS)
+    ap.add_argument("--k5-out", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.turn:
+        print(json.dumps(turn(args.turn, args.k5_out)))
+        return
+    import torch
+
+    sys.path.insert(0, ROOT)
+    other = os.path.abspath(args.other)
+    work = os.path.join(ROOT, "build", "ab")
+    os.makedirs(work, exist_ok=True)
+    turns = []
+    for i, tree in enumerate((other, ROOT, ROOT, other)):
+        k5_out = os.path.join(work, f"k5_{i}.pt")
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), args.other,
+             "--turn", tree, "--k5-out", k5_out],
+            stdout=subprocess.PIPE, text=True, check=True)
+        turns.append(json.loads(res.stdout.strip().splitlines()[-1]))
+        t = turns[-1]
+        print(json.dumps({k: v for k, v in t.items()
+                          if k not in ("ptxas", "sass")}), flush=True)
+    k5 = [torch.load(os.path.join(work, f"k5_{i}.pt")) for i in range(4)]
+    checks = {"k4_same_bytes": len({t["k4_sha256"] for t in turns}) == 1,
+              "k5_same_points": all(same_points(k5[0][j], k5[i][j])
+                                    for i in (1, 2, 3) for j in (0, 1))}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    line = {"turns": turns, **checks, "nvidia_smi": smi}
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(line, f, indent=1)
+    print(json.dumps({**checks, "nvidia_smi": smi}))
+    if not all(checks.values()):
+        sys.exit(f"torch_kernel_ab: checks failed: {checks}")
+
+
+if __name__ == "__main__":
+    main()

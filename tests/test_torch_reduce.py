@@ -6,9 +6,13 @@ JAX `msm_impl` chains them, are frozen in tests/vectors/torch_port_v1.json
 (`fused_reduce`, by scripts/gen_torch_port_vectors.py: eager JAX takes
 about 40 s a case on the CPU) for c=3, W=3 with signed digits and c=3,
 W=2 unsigned, on seeded bucket sums with identity buckets, a window of
-identities, P beside -P and equal buckets.  The port's plain versions
-must give the same projective integers mod p (the JAX CPU path keeps
-values lazy in [0, 2p)), and the python-int oracle's points.  The port's
+identities, P beside -P and equal buckets.  The port's plain K6 must
+give the same projective integers mod p (the JAX CPU path keeps values
+lazy in [0, 2p)) from the frozen JAX double suffix; the port's plain K5
+adds in another order than the JAX kernel's rounds (a chunked,
+work-efficient suffix), so its double suffix is compared with the JAX
+one as affine points, and with the python-int oracle's at small shapes
+in both coordinate systems.  The port's
 `msm_impl` at n=128 (c=8, W=32) gives the oracle's point with the fused
 reduction on and off.  The PLUME voter's synthesis at k=21 is held to the
 frozen JAX stats, instances and layout shape (slow: about 80 s).
@@ -75,13 +79,18 @@ def _ints(coords):
 
 @pytest.mark.parametrize("v", CASES, ids=IDS)
 def test_plain_versions_match_frozen_jax(v):
-    """K5's and K6's plain versions give the frozen JAX integers."""
+    """K5's plain version gives the frozen JAX double suffix's points (its
+    order of additions is not the JAX kernel's, so its projective
+    integers differ); K6's, fed the frozen JAX double suffix, gives the
+    frozen JAX integers."""
     F = bn254_fq()
     s2 = fused.weighted_suffix(_flat(v), v["B"], F.p, B3)
-    assert _ints(s2) == v["s2"]
+    assert ([_affine(r) for r in _ints(s2)]
+            == [_affine(r) for r in v["s2"]])
+    frozen = _flat(dict(v, inputs=v["s2"]))
     sel = _sel(v)
-    t = fused.ladder_tree(tuple(a[sel] for a in s2), v["c"], v["W"], F.p,
-                          B3)
+    t = fused.ladder_tree(tuple(a[sel] for a in frozen), v["c"], v["W"],
+                          F.p, B3)
     assert _ints(t) == v["ladder"]
 
 
@@ -103,6 +112,72 @@ def test_frozen_reduction_against_oracle(v):
         total = total + (1 << (c * w)) * s2[w * B + (0 if v["signed"]
                                                      else 1)]
     assert _affine(v["ladder"]) == total
+
+
+def _jac_affine(xyz) -> AffinePoint:
+    """Canonical Jacobian integers (X : Y : Z) -> affine point."""
+    x, y, z = (int(a) for a in xyz)
+    q = BN254_G1.p
+    if z % q == 0:
+        return AffinePoint.identity(BN254_G1)
+    zi = pow(z, -1, q)
+    return AffinePoint(BN254_G1, x * zi * zi % q, y * zi * zi * zi % q)
+
+
+# (W, B, SUFFIX_LANES, CARRY_GROUP, CARRY_THREADS) of the small K5
+# cases: B = 1; a window narrower than the chunk the lanes ask for (C
+# clamped to B); a window of eight chunks of two, in one carry group of
+# four threads of two totals (two Hillis-Steele rounds); the same in two
+# groups of four totals, two threads each, whose sums take a second carry
+# pass
+SUFFIX_CASES = {"B1": (3, 1, 1 << 15, 64, 32), "B_below_C": (2, 4, 1, 64, 32),
+                "chunks": (2, 16, 16, 64, 4),
+                "groups": (2, 16, 16, 4, 2)}
+
+
+@pytest.mark.parametrize("b3", [B3, 0], ids=["rcb", "jacobian"])
+@pytest.mark.parametrize("case", sorted(SUFFIX_CASES))
+def test_weighted_suffix_plain_against_oracle(case, b3, monkeypatch):
+    """The plain K5 in the kernel's order of additions gives the oracle's
+    double suffix s2[w*B + b] = sum_{b' >= b} (b' - b + 1) S[w, b'], in
+    RCB projective (b3 != 0) and Jacobian (b3 == 0) coordinates, on
+    bucket sums with identities, a window of identities (window 1), P
+    beside -P and equal buckets."""
+    W, B, lanes, group, threads = SUFFIX_CASES[case]
+    monkeypatch.setattr(fused, "SUFFIX_LANES", lanes)
+    monkeypatch.setattr(fused, "CARRY_GROUP", group)
+    monkeypatch.setattr(fused, "CARRY_THREADS", threads)
+    q = BN254_G1.p
+    rng = random.Random(W * 1000 + B)
+    g = AffinePoint.generator(BN254_G1)
+    pool = [rng.randrange(1, BN254_G1.n) * g for _ in range(6)]
+    ident = AffinePoint.identity(BN254_G1)
+    S = [rng.choice(pool) for _ in range(W * B)]
+    S[0] = ident
+    if W * B > 4:
+        S[2], S[3], S[4] = pool[0], -pool[0], pool[0]
+    if W > 1 and B > 1:
+        S[B:2 * B] = [ident] * B
+    rows = []
+    for pt in S:
+        lam = rng.randrange(1, q)
+        if pt.is_identity():
+            rows.append((0, lam, 0))
+        elif b3:
+            rows.append((lam * pt.x % q, lam * pt.y % q, lam))
+        else:
+            rows.append((lam * lam * pt.x % q, lam ** 3 * pt.y % q, lam))
+    F = bn254_fq()
+    flat = tuple(F.to_mont([r[i] for r in rows], DEV) for i in range(3))
+    got = fused.weighted_suffix(flat, B, F.p, b3)
+    to_affine = _affine if b3 else _jac_affine
+    got = [to_affine(r) for r in _ints(got)]
+    for w in range(W):
+        run = acc = ident
+        for b in range(B - 1, -1, -1):
+            run = run + S[w * B + b]
+            acc = acc + run
+            assert got[w * B + b] == acc, (w, b)
 
 
 @pytest.mark.parametrize("fused_reduce", ["0", "1"])
@@ -183,3 +258,85 @@ def test_plume_synthesis_matches_frozen_jax():
             "n_perm": n_perm, "n_z": -(-n_perm // PERM_CHUNK),
             "usable": lay.usable,
             "ext_log": quotient_ext_log(lay.n_lookup)} == v["vk_shape"]
+
+
+# -- what chip_smoke.py reads of K4's and K5's kernels ------------------------
+
+def test_formula_bound_takes_the_slowest_pipe():
+    """The point formulas' bound: products on the IMAD pipe, adds and the
+    products' conditional subtracts on the ALU pipe, 64 lanes an SM a
+    clock each, the issue at 128, and HBM; the slowest decides, never
+    above the single-pipe count it replaced."""
+    import chip_smoke as cs
+
+    n = 1 << 20
+    muls, adds = cs.PADD
+    imad = muls * cs.MUL_OPS
+    got = cs.formula_bound([(n, cs.PADD)], 0)
+    assert got["bound_by"] == "operations"
+    assert got["bound_ms"] == pytest.approx(
+        n * imad / 64 / cs.SM_CLOCKS_PER_S * 1e3)
+    single = n * (imad + adds * cs.ADD_OPS) / cs.INT32_OPS_PER_S * 1e3
+    assert got["bound_ms"] < single
+    # an adds-only formula is bound by the ALU pipe, a tiny one by bytes
+    alu = cs.formula_bound([(n, (0, 64))], 0)
+    assert alu["bound_ms"] == pytest.approx(
+        n * 64 * cs.ADD_OPS / 64 / cs.SM_CLOCKS_PER_S * 1e3)
+    assert cs.formula_bound([(1, cs.PADD)], 1 << 30)["bound_by"] == "bytes"
+    # work adds up over formulas
+    both = cs.formula_bound([(n, cs.PDBL), (n, cs.PADD)], 0)["bound_ms"]
+    assert both == pytest.approx(
+        cs.formula_bound([(n, cs.PDBL)], 0)["bound_ms"] + got["bound_ms"])
+
+
+def test_ptxas_entries_reads_each_kernel():
+    """Registers and the stack frame of each entry function, not of the
+    functions it calls."""
+    import chip_smoke as cs
+
+    log = """ptxas info    : Compiling entry function '_Z3fooILb1EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooILb1EEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 252 registers, used 0 barriers
+ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'
+ptxas info    : Function properties for _Z3barv
+    520 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 128 registers, used 0 barriers, 520 bytes cumulative stack size
+ptxas info    : Function properties for _Z6fe_mulv
+    16 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+"""
+    assert cs.ptxas_entries(log) == {
+        "_Z3fooILb1EEvv": {"stack_bytes": 0, "spill_stores": 0,
+                           "spill_loads": 0, "registers": 252},
+        "_Z3barv": {"stack_bytes": 520, "spill_stores": 8,
+                    "spill_loads": 4, "registers": 128}}
+
+
+def test_kernel_sass_reads_loop_and_subroutines(monkeypatch):
+    """A kernel's main loop, and the subroutines of its listing (a
+    non-inlined call's body after EXIT) with their call sites."""
+    import types
+
+    import chip_smoke as cs
+
+    ops = ["IMAD.WIDE.U32 R2, R4, R5, R2", "IADD3 R6, P0, R2, R7, RZ",
+           "LDG.E.128 R8, desc[UR4][R10.64]", "CALL.REL.NOINC 0x100",
+           "STL.64 [R1], R2", "@!P0 BRA 0x10", "EXIT",
+           "IMAD.X R3, RZ, RZ, R3, P0", "LDL R4, [R1]", "RET.REL.NODEC R20 0x0"]
+    lines = ["\t\tFunction : _Z18bucket_scan_kernelILb1EEvv"]
+    addrs = [0x10, 0x20, 0x30, 0x40, 0x50, 0x60, 0x70, 0x100, 0x110, 0x120]
+    lines += [f"        /*{a:04x}*/{' ' * 19}{op} ;" for a, op in
+              zip(addrs, ops)]
+    sass = "\n".join(lines) + "\n"
+    monkeypatch.setattr(cs.os.path, "exists", lambda path: True)
+    monkeypatch.setattr(cs.subprocess, "run", lambda *a, **k:
+                        types.SimpleNamespace(stdout=sass))
+    (got,) = cs.kernel_sass("lib.so", ("bucket_scan_kernel",)).values()
+    loop = got["loop"]
+    assert (loop["IMAD*"], loop["IADD3/LOP3/SHF/SEL"], loop["LDG/STG"],
+            loop["LDL/STL"], loop["CALL"], loop["all"]) == (1, 1, 1, 1, 1, 5)
+    subs = got["subroutines"]
+    assert set(subs) == {"0x10", "0x100"}
+    assert subs["0x100"]["call_sites"] == 1
+    assert subs["0x100"]["IMAD*"] == 1 and subs["0x100"]["LDL/STL"] == 1
+    assert subs["0x10"]["all"] == 7

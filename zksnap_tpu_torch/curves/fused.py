@@ -17,13 +17,17 @@ steps, emitting every step's partial sum.
 `weighted_suffix(flat, B, p, b3)` and `ladder_tree(wsums, c, W, p, b3)`
 are the post-scan stages of Pippenger: the window-local double suffix
 of the bucket sums, and the masked doubling ladder plus suffix tree that
-combines the windows.
+combines the windows.  The double suffix is work-efficient (chunked
+suffix sums with two-level carries): it adds in another order than the
+JAX kernel's Hillis-Steele rounds, so its projective representatives
+differ from the JAX package's while the points are the same.
 
 All four dispatch on the tensor's device: CUDA launches the hand-written
 kernel (csrc/point.cu, csrc/bucket_scan.cu, csrc/reduce.cu), CPU runs the
 plain version below, which evaluates the same formula bodies with the
-plain field ops (all values canonical, so the two agree bit for bit).
-Each wrapper's `.launches` counts its kernel launches.
+plain field ops in the kernel's order (all values canonical, so the two
+agree bit for bit).  Each wrapper's `.launches` counts its calls that
+launch their kernels (K5's call is seven launches on the stream).
 """
 
 from __future__ import annotations
@@ -347,56 +351,158 @@ bucket_scan.launches = 0
 LADDER_LANES = 128
 
 
-def _suffix_rounds(F, st, B: int, b3: int):
-    """Hillis-Steele suffix sum within each window of B lanes:
-    log2(B) rounds of st[i] += st[i + d] (window-local, masked)."""
-    kind = "padd" if b3 else "add"
-    total = st[0].shape[0]
-    lane_b = torch.arange(total, device=st[0].device) % B
-    ident = _zero_one_zero(total, F.p, st[0].device)
-    rounds = max(B.bit_length() - 1, 1) if B > 1 else 0
-    for r in range(rounds):
-        d = 1 << r
-        valid = (lane_b + d < B)[:, None]
+# K5's chunked suffix sums (csrc/reduce.cu): C consecutive buckets a
+# chunk, chosen so that about SUFFIX_LANES threads run the chunk passes;
+# the carries of a window's chunks come in groups of CARRY_GROUP chunk
+# totals, a block of at most CARRY_THREADS threads a group (the kernel
+# takes at most 32), then the same over each window's group totals.  The
+# plain version below adds in the kernel's order, so the two agree bit
+# for bit.
+SUFFIX_LANES = 1 << 15
+CARRY_GROUP = 64
+CARRY_THREADS = 32
+
+
+def suffix_chunk(total: int, B: int) -> int:
+    """K5's chunk length C for `total` buckets in windows of B (a power of
+    two): the power of two nearest above total / SUFFIX_LANES, at most B."""
+    want = -(-total // SUFFIX_LANES)
+    return min(B, 1 << (want - 1).bit_length())
+
+
+def _suffix_sum(F, kind: str, b3: int, rows, n: int):
+    """Sum of each run of n consecutive rows, added from the top down:
+    u = r[n-1] + r[n-2] + ... + r[0]."""
+    v = tuple(a.reshape(-1, n, N_LIMBS) for a in rows)
+    u = tuple(a[:, n - 1] for a in v)
+    for i in range(n - 2, -1, -1):
+        u = _run_body(kind, F, u + tuple(a[:, i] for a in v), b3)
+    return u
+
+
+def _suffix_carries(F, kind: str, b3: int, t, per: int):
+    """One carry block of K5 over each run of `per` totals: for each total
+    the sum of the run's totals above it ((0 : 1 : 0) for the last), and
+    each run's sum.  G threads of L totals each: a thread's sum, a
+    Hillis-Steele suffix over the G sums, then each thread's L totals
+    rerun from the sum above."""
+    G = min(per, CARRY_THREADS)
+    L = per // G
+    n = t[0].shape[0] // L  # threads over all runs
+    u = _suffix_sum(F, kind, b3, t, L)
+    g = torch.arange(n, device=t[0].device) % G
+    ident = _zero_one_zero(n, F.p, t[0].device)
+    d = 1
+    while d < G:
+        valid = (g + d < G)[:, None]
         sh = tuple(torch.where(valid, torch.roll(a, -d, 0), i)
-                   for a, i in zip(st, ident))
-        st = _run_body(kind, F, tuple(st) + sh, b3)
-    return tuple(st)
+                   for a, i in zip(u, ident))
+        u = _run_body(kind, F, u + sh, b3)
+        d <<= 1
+    totals = tuple(a[g == 0] for a in u)
+    valid = (g + 1 < G)[:, None]
+    run = tuple(torch.where(valid, torch.roll(a, -1, 0), i)
+                for a, i in zip(u, ident))
+    tv = tuple(a.reshape(n, L, N_LIMBS) for a in t)
+    outs = [None] * L
+    for i in range(L - 1, -1, -1):
+        outs[i] = run
+        if i:
+            run = _run_body(kind, F, run + tuple(a[:, i] for a in tv), b3)
+    return tuple(torch.stack([o[c] for o in outs], 1).reshape(-1, N_LIMBS)
+                 for c in range(3)), totals
+
+
+def _window_carries(F, kind: str, b3: int, t, per_window: int):
+    """(b) of K5: for each chunk total, the sum of its window's totals
+    above it, by groups of CARRY_GROUP totals and then over each window's
+    group sums; a group's carry is added before the chunk's own."""
+    group = min(per_window, CARRY_GROUP)
+    e, sums = _suffix_carries(F, kind, b3, t, group)
+    if per_window == group:
+        return e
+    eg, _ = _suffix_carries(F, kind, b3, sums, per_window // group)
+    eg = tuple(a.repeat_interleave(group, 0) for a in eg)
+    return _run_body(kind, F, eg + e, b3)
+
+
+def _suffix_rerun(F, kind: str, b3: int, rows, carry, C: int,
+                  total: bool):
+    """(c) of K5: each chunk's suffix sums seeded by its carry,
+    out[i] = carry + r[C-1] + ... + r[i]; with `total`, also the sum of
+    each chunk's outputs, out[C-1] + ... + out[0]."""
+    v = tuple(a.reshape(-1, C, N_LIMBS) for a in rows)
+    run, tot = carry, None
+    outs = [None] * C
+    for i in range(C - 1, -1, -1):
+        run = _run_body(kind, F, run + tuple(a[:, i] for a in v), b3)
+        outs[i] = run
+        if total:
+            tot = run if tot is None else _run_body(kind, F, tot + run, b3)
+    out = tuple(torch.stack([o[c] for o in outs], 1).reshape(-1, N_LIMBS)
+                for c in range(3))
+    return out, tot
+
+
+def _check_suffix(total: int, B: int):
+    if B < 1 or B & (B - 1) or total % B:
+        raise ValueError(f"{total} buckets are not whole windows of {B} "
+                         "(a power of two)")
 
 
 def weighted_suffix_plain(flat, B: int, p: int, b3: int = 0):
-    """The plain PyTorch version of K5: two window-local suffix scans."""
+    """The plain PyTorch version of K5: two chunked suffix sums, the
+    kernel's additions in the kernel's order."""
+    total = flat[0].shape[0]
+    _check_suffix(total, B)
+    if B == 1:  # the double suffix of one bucket is itself
+        return tuple(a.clone() for a in flat)
     F = _PlainField(p)
-    return _suffix_rounds(F, _suffix_rounds(F, tuple(flat), B, b3), B, b3)
+    kind = "padd" if b3 else "add"
+    C = suffix_chunk(total, B)
+    t = _suffix_sum(F, kind, b3, flat, C)
+    e = _window_carries(F, kind, b3, t, B // C)
+    s1, t = _suffix_rerun(F, kind, b3, flat, e, C, True)
+    e = _window_carries(F, kind, b3, t, B // C)
+    return _suffix_rerun(F, kind, b3, s1, e, C, False)[0]
 
 
 def weighted_suffix(flat, B: int, p: int, b3: int = 0):
     """Window-local double suffix of the bucket sums (kernel K5).
 
-    flat: (x, y, z) each [W*B, 16], window-major bucket sums.  Returns
-    (x, y, z) each [W*B, 16] with
+    flat: (x, y, z) each [W*B, 16], window-major bucket sums, B a power of
+    two.  Returns (x, y, z) each [W*B, 16] with
     s2[w*B + b] = sum_{b' >= b} (b' - b + 1) * S[w, b'].
-    Projective (RCB padd) for b3 != 0, Jacobian add for b3 == 0."""
+    Projective (RCB padd) for b3 != 0, Jacobian add for b3 == 0.  One
+    call counts one launch: the kernel's seven passes on the stream."""
     dev = _device_of(list(flat))
     if dev.type == "cpu":
         return weighted_suffix_plain(flat, B, p, b3)
     from .. import kernels
 
     total = flat[0].shape[0]
-    if B < 1 or total % B:
-        raise ValueError(f"{total} buckets are not whole windows of {B}")
+    _check_suffix(total, B)
+    if B == 1:
+        return tuple(a.clone() for a in flat)
+    C = suffix_chunk(total, B)
     ins = [a.contiguous() for a in flat]
     outs = [torch.empty((total, N_LIMBS), dtype=torch.int32, device=dev)
-            for _ in range(6)]  # the result, then the round scratch
-    rounds = max(B.bit_length() - 1, 1) if B > 1 else 0
+            for _ in range(3)]
+    group = min(B // C, CARRY_GROUP)
+    # s1, then the chunk totals and carries, then the groups' (three
+    # coordinates each)
+    chunks = total // C
+    scratch = torch.empty((3 * (total + 2 * chunks + 2 * (chunks // group)),
+                           N_LIMBS), dtype=torch.int32, device=dev)
     err = kernels.library().zk_weighted_suffix(
         *[kernels.rows(a, total) for a in ins],
-        *[kernels.rows(o, total) for o in outs], total, B, rounds,
-        1 if b3 else 0, int(b3), kernels.mod_ptr(p),
+        *[kernels.rows(o, total) for o in outs], scratch.data_ptr(),
+        total, B, C, group, CARRY_THREADS, 1 if b3 else 0, int(b3),
+        kernels.mod_ptr(p),
         kernels.stream_of(outs[0]))
     kernels.check(err, "zk_weighted_suffix")
     weighted_suffix.launches += 1
-    return tuple(outs[:3])
+    return tuple(outs)
 
 
 weighted_suffix.launches = 0

@@ -24,7 +24,7 @@ CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 SOURCES = ("mont.cu", "point.cu", "bucket_scan.cu", "reduce.cu",
            "pallas_point.cu", "exp_rates.cu", "exp_mul_variants.cu",
            "exp_mul_mxu.cu")
-HEADERS = ("field.cuh", "point.cuh", "mont16.cuh")
+HEADERS = ("field.cuh", "point.cuh", "point_inline.cuh", "mont16.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(__file__), "..", "build",
                          "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -38,7 +38,7 @@ _SIGNATURES = {
     "zk_mont_addsub": [_P, _P, _P, _LL, _LL, _LL, _I, _P, _P],
     "zk_point": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _P, _P],
     "zk_bucket_scan": [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P, _P],
-    "zk_weighted_suffix": [_P] * 9 + [_LL, _LL, _I, _I, _I, _P, _P],
+    "zk_weighted_suffix": [_P] * 7 + [_LL, _LL] + [_I] * 5 + [_P, _P],
     "zk_ladder_tree": [_P] * 6 + [_I, _I, _I, _I, _P, _P],
     "zk_jac_add": [_P] * 9 + [_LL, _P, _P],
     "zk_jac_dbl": [_P] * 6 + [_LL, _P, _P],
