@@ -8,7 +8,8 @@ Phases:
      each source, all started together, timed; ptxas registers and
      spills logged; the main loop of each K11 chain from cuobjdump -sass;
      K4's and K5's kernels' registers, stack frames and SASS instruction
-     mix);
+     mix; K3's projective kinds and K6's RCB kernel required inlined: a
+     0-byte stack frame and no CALL in their SASS);
   2. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes, edge cases included, bit-exact, and time both:
      the k=13 path's (n = 8192 field elements and points; the fixed-base
@@ -17,7 +18,11 @@ Phases:
      signed-digit pairs, M = 32768 lanes x K = 128 steps; the fused
      reduction at W = 16 windows of B = 2^15 buckets and c = 16) and
      K=7's fused reduction (W = 32 windows of 128, c = 8), K4's and K5's
-     Jacobian branches (b3 = 0) at the k=13 and K=7 shapes; then K7 and
+     Jacobian branches (b3 = 0) at the k=13 and K=7 shapes; K3's
+     projective kinds at ragged n (RAGGED_N) with identities, P == Q and
+     P == -P first and last; K6 at W = 1 and 2 too, and its device time
+     a launch at c = 16 over W = 1 to 16 fitted as a + b c (W - 1), b
+     the microseconds a dependent doubling; then K7 and
      K8 through their own entry points (point_add_batch,
      point_dbl_batch, point_add_staged; the only path that runs them),
      once each at n = 2^20 with the counts read, then against their plain
@@ -50,7 +55,7 @@ Phases:
      one), a cold and a warm proof, verification, a tampered proof
      rejected, the peak device memory of keygen and of a proof; the
      launch counts of K1-K6 over it, each required > 0; one more warm
-     proof under torch.profiler (K4's and K5's kernels in it apart); then
+     proof under torch.profiler (K3's to K6's kernels in it apart); then
      one 2^21 commit fused and unfused, the same point;
   7. a ceremony-format SRS at k=15 written, read back (curve, pairing
      and Lagrange-sum checks) and compared; a corrupted file refused;
@@ -414,6 +419,37 @@ def check_bucket_scan(results, tag: str, Qa, ids, M: int):
         f"{r['bound_ms']:.4g} ms")
 
 
+# n of K3's ragged check: one point, less than a warp, and each side of
+# the k=13 path's 8192 and the k=21 path's 32768
+RAGGED_N = (1, 31, 8191, 8192, 32769, 32768)
+
+
+def check_point_ragged(dev, rng, results):
+    """K3's projective kinds bit-exact against their plain versions at
+    each n of RAGGED_N: rows drawn from 8192 seeded points, the edge rows
+    (identities, P == Q, P == -P) first and last."""
+    from zksnap_tpu_torch.curves import fused
+    from zksnap_tpu_torch.curves.native import BN254_G1
+    from zksnap_tpu_torch.fields import bn254_fq
+
+    Fq, b3 = bn254_fq(), 3 * BN254_G1.b
+    P, Qg, Qa = point_inputs(BN254_G1, Fq, 8192, rng, dev, False)
+    gen = torch.Generator().manual_seed(rng.randrange(1 << 31))
+    for n in RAGGED_N:
+        idx = torch.randint(0, 8192, (n,), generator=gen)
+        edge = torch.arange(min(8, n))
+        idx[:len(edge)] = edge
+        idx[n - len(edge):] = edge
+        idx = idx.to(dev)
+        for kind, ins in (("padd", P + Qg), ("pmadd", P + Qa), ("pdbl", P)):
+            args = [a[idx] for a in ins]
+            err = max_abs_err(fused.point(kind, args, Fq.p, b3),
+                              fused.point_plain(kind, args, Fq.p, b3))
+            require(err == 0, ("K3 ragged", kind, n, err))
+    shape_result(results, "K3", "ragged", n=list(RAGGED_N), max_abs_err=0)
+    log(f"K3 padd, pmadd, pdbl bit-exact at ragged n = {list(RAGGED_N)}")
+
+
 def phase2(dev, rng, results):
     """K1-K4 at the k=13 path's shapes: n = 8192 field elements and
     points, the fixed-base bucket stream of 16 * 8192 pairs."""
@@ -477,6 +513,8 @@ def phase2(dev, rng, results):
                  **formula_bound([(n, PADD)], n * 9 * ROW))
     results["K3_kinds"] = {kind: {"ms": ms, "plain_ms": pms, "device_ms": dms}
                            for kind, (ms, pms, dms) in k3_ms.items()}
+
+    check_point_ragged(dev, rng, results)
 
     # K4: the fixed-base stream at k=13: 16 windows * 8192 pairs into
     # 2^15 signed buckets, sorted, identities encoded (0, 0, 0)
@@ -581,8 +619,8 @@ def reduce_inputs(F, curve, n: int, rng, dev, jacobian: bool = False):
 def phase2_reduce(dev, rng, results):
     """K5 and K6 against their plain versions at the k=21 and K=7 shapes
     of the fused reduction, edge cases included: identity buckets, a
-    window of identities, P beside -P, equal buckets; at K=7 K5's
-    Jacobian branch (b3 = 0) too, untimed."""
+    window of identities, P beside -P, equal buckets; at K=7 K5's and
+    K6's Jacobian branches (b3 = 0) too, untimed."""
     from zksnap_tpu_torch.curves import fused
     from zksnap_tpu_torch.curves.native import BN254_G1
     from zksnap_tpu_torch.fields import bn254_fq
@@ -623,11 +661,18 @@ def phase2_reduce(dev, rng, results):
             lambda: fused.ladder_tree_plain(wsums, c, W, F.p, b3))
         err = max_abs_err(got, want)
         require(err == 0, ("K6", tag, err))
+        jac_err = None
+        if tag == "k7":  # K6's Jacobian branch (b3 = 0), untimed
+            jsums = reduce_inputs(F, BN254_G1, W, rng, dev, True)
+            jac_err = max_abs_err(fused.ladder_tree(jsums, c, W, F.p, 0),
+                                  fused.ladder_tree_plain(jsums, c, W, F.p, 0))
+            require(jac_err == 0, ("K6", tag, "b3", 0, jac_err))
         # the function's work: Horner's combine, c doublings and one padd
         # for each window past the first (the kernel's masked ladder
         # doubles every lane in parallel, sum_w c*w in all)
         k6 = shape_result(
-            results, "K6", tag, c=c, W=W, max_abs_err=err, plain_ms=plain_ms,
+            results, "K6", tag, c=c, W=W, max_abs_err=err,
+            jacobian_max_abs_err=jac_err, plain_ms=plain_ms,
             ms=cuda_ms(lambda: fused.ladder_tree(wsums, c, W, F.p, b3), 20),
             device_ms=kernel_device_ms(
                 lambda: fused.ladder_tree(wsums, c, W, F.p, b3),
@@ -642,6 +687,59 @@ def phase2_reduce(dev, rng, results):
                 + f"): kernel {r['ms']:.4f} ms a call "
                 f"({fmt_ms(r['device_ms'])} on the device), plain "
                 f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4g} ms")
+
+
+# (c, W) of K6's latency fit: c = 16 (the k=21 commit's) over 0 to 240
+# dependent doublings
+LADDER_FIT = tuple((16, w) for w in (1, 2, 4, 8, 16))
+
+
+def fit_line(xs, ys) -> tuple[float, float]:
+    """Least-squares (a, b) of y = a + b x."""
+    n = len(xs)
+    mx, my = sum(xs) / n, sum(ys) / n
+    b = (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+         / sum((x - mx) ** 2 for x in xs))
+    return my - b * mx, b
+
+
+def check_ladder_fit(dev, rng, results):
+    """K6 bit-exact against its plain version at c = 16 for W = 1 (a
+    general point), W = 2 (P beside -P; two identities), in RCB and in
+    Jacobian coordinates (b3 = 0), then its device
+    time a launch over LADDER_FIT, fitted as a + b c (W - 1): b is the
+    dependent chain's microseconds a doubling, a the tree's and the
+    launch's."""
+    from zksnap_tpu_torch.curves import fused
+    from zksnap_tpu_torch.curves.native import BN254_G1
+    from zksnap_tpu_torch.fields import bn254_fq
+
+    F, b3 = bn254_fq(), 3 * BN254_G1.b
+    rows = reduce_inputs(F, BN254_G1, 24, rng, dev)
+    jac_rows = reduce_inputs(F, BN254_G1, 24, rng, dev, True)
+
+    def sums(lo, w, src=rows):
+        return tuple(a[lo : lo + w].contiguous() for a in src)
+
+    for src, b in ((rows, b3), (jac_rows, 0)):
+        for lo, w in ((6, 1), (2, 2), (0, 2)):
+            err = max_abs_err(
+                fused.ladder_tree(sums(lo, w, src), 16, w, F.p, b),
+                fused.ladder_tree_plain(sums(lo, w, src), 16, w, F.p, b))
+            require(err == 0, ("K6", "c=16", "b3", b, "W", w, "rows", lo,
+                               err))
+    by = {}
+    for c, w in LADDER_FIT:
+        ws = sums(6, w)
+        by[c * (w - 1)] = kernel_device_ms(
+            lambda: fused.ladder_tree(ws, c, w, F.p, b3), "ladder_tree_kernel")
+    xs = sorted(by)
+    a, b = fit_line(xs, [by[x] for x in xs])
+    results["K6_fit"] = {"device_ms": by, "a_us": a * 1e3,
+                         "us_a_doubling": b * 1e3}
+    log(f"K6 bit-exact at c=16, W=1 and W=2, RCB and Jacobian; device ms a launch over its "
+        f"c*(W-1) dependent doublings {by}: {b * 1e3:.3f} us a doubling, "
+        f"{a * 1e3:.1f} us besides")
 
 
 # (tag, n) of K7 and K8: a batch of 2^20 points, and the 32768 lanes of
@@ -891,6 +989,40 @@ def kernel_sass(lib_path: str, fragments) -> dict:
 K5_KERNELS = ("suffix_chunk_total_kernel", "suffix_carry_kernel",
               "suffix_chunk_kernel")
 SCAN_KERNELS = ("bucket_scan_kernel",) + K5_KERNELS
+
+
+# K3's projective kinds (padd, pmadd, pdbl) and K6's RCB kernel, by their
+# mangled names' prefixes: they must run inlined, with a 0-byte stack
+# frame and no CALL in their SASS
+INLINED_KERNELS = ("point_kernelILi3E", "point_kernelILi4E",
+                   "point_kernelILi5E", "ladder_tree_kernelILb1E")
+
+
+def inlined(ptxas: dict, sass: dict, fragments=INLINED_KERNELS) -> dict:
+    """{fragment: {"kernel", "registers", "stack_bytes", "calls"}} for the
+    one kernel whose name holds each fragment: its ptxas line
+    (ptxas_entries) and the CALLs in its SASS listing (kernel_sass: its
+    own code and every subroutine)."""
+    out = {}
+    for frag in fragments:
+        names = [k for k in sass if frag in k]
+        require(len(names) == 1 and names[0] in ptxas,
+                ("one kernel's ptxas line and SASS", frag, names))
+        name = names[0]
+        out[frag] = {"kernel": name,
+                     "registers": ptxas[name].get("registers"),
+                     "stack_bytes": ptxas[name].get("stack_bytes"),
+                     "calls": sum(s["CALL"] for s in
+                                  sass[name]["subroutines"].values())}
+    return out
+
+
+def require_inlined(report: dict):
+    """Each kernel of inlined()'s report has a 0-byte stack frame and no
+    CALL."""
+    for frag, r in report.items():
+        require(r["stack_bytes"] == 0 and r["calls"] == 0,
+                ("not inlined", frag, r))
 
 
 def ptxas_entries(log_text: str) -> dict:
@@ -1384,15 +1516,17 @@ def profile_prove(pk, inst, times):
     times["profiled_prove_s"] = wall
     times["device_busy_s"] = busy
     times["device_top"] = dict(top)
-    times["k4_k5_device"] = {k: v for k, v in by_name.items()
-                             if any(s in k for s in SCAN_KERNELS)}
+    times["k3_to_k6_device"] = {
+        k: v for k, v in by_name.items()
+        if any(s in k for s in SCAN_KERNELS + ("point_kernel",
+                                               "ladder_tree_kernel"))}
     log(f"voter k={pk.vk.k}: warm prove under the profiler {wall:.3f} s, device "
         f"busy {busy:.3f} s ({100 * busy / wall:.1f}%); "
         + ("; ".join(f"{k[:40]} x{v[0]} {v[1]:.1f} ms" for k, v in top)
            if top else "no device activity seen: not measured"))
-    log("  K4/K5 in it: " + "; ".join(
+    log("  K3-K6 in it: " + "; ".join(
         f"{k.split('(')[0]} x{v[0]} {v[1]:.1f} ms"
-        for k, v in times["k4_k5_device"].items()))
+        for k, v in times["k3_to_k6_device"].items()))
 
 
 def phase_ceremony_srs(dev, work, times, k: int = 15):
@@ -1673,19 +1807,28 @@ def main():
                                    "spill")):
             ptxas.append(line.strip())
             log("  ptxas:", line.strip())
-    scan_ptxas = {k: v for k, v in ptxas_entries(build_log).items()
+    all_ptxas = ptxas_entries(build_log)
+    scan_ptxas = {k: v for k, v in all_ptxas.items()
                   if any(s in k for s in SCAN_KERNELS)}
-    scan_sass = kernel_sass(lib_path, SCAN_KERNELS)
+    sass = kernel_sass(lib_path, SCAN_KERNELS + INLINED_KERNELS)
+    scan_sass = {k: v for k, v in sass.items()
+                 if any(s in k for s in SCAN_KERNELS)}
     for name, v in scan_sass.items():
         log(f"  K4/K5 {name}: ptxas {scan_ptxas.get(name)}; main loop "
             + str({g: n for g, n in (v["loop"] or {}).items()
                    if g != "opcodes"}))
+    inline_report = inlined(all_ptxas, sass)
+    for r in inline_report.values():
+        log(f"  K3/K6 {r['kernel']}: {r['registers']} registers, "
+            f"{r['stack_bytes']}-byte stack frame, {r['calls']} CALL")
+    require_inlined(inline_report)
 
     rng = random.Random(20261016)
     results = {}
     phase2(dev, rng, results)
     phase2_k21(dev, rng, results)
     phase2_reduce(dev, rng, results)
+    check_ladder_fit(dev, rng, results)
     launches_k7_k8 = phase_point_batch(dev, rng, results)
     loops = chain_loops(lib_path)
     t_exp = time.time()
@@ -1813,6 +1956,10 @@ def main():
                    "path_launches": path_launches,
                    "launches_k7_k8": launches_k7_k8, "ptxas": ptxas,
                    "k4_k5_ptxas": scan_ptxas, "k4_k5_sass": scan_sass,
+                   "k3_k6_inlined": inline_report,
+                   "k3_k6_sass": {k: v for k, v in sass.items()
+                                  if k not in scan_sass},
+                   "k6_fit": results["K6_fit"],
                    "k3_kinds": results["K3_kinds"],
                    "shapes": {k: results[k + "_shapes"] for k in meta
                               if k + "_shapes" in results},

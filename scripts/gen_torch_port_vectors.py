@@ -41,10 +41,13 @@ PyTorch port (zksnap_tpu_torch) is held to without rerunning the JAX prover.
       below p (the port's oracle set, `random.Random(0)`) and 256 of all
       16-bit limbs (numpy-seeded, 2^256 - 1 first), limb-major [16, 256]
       uint32, each array stored as base64 of its zlib-compressed
-      little-endian bytes.
+      little-endian bytes;
+  (l) `ladder_small`: `ladder_tree_fused` (K6) alone at (c, W) = (16, 1)
+      and (3, 2), a few doublings, on seeded window sums (x*l, y*l, l)
+      as canonical integers (an eager call takes about 25 s).
 
 Run on the CPU:  python scripts/gen_torch_port_vectors.py [part ...]
-with parts among k7, voter_k13, msm, reduce, plume, pallas_point,
+with parts among k7, voter_k13, msm, reduce, ladder, plume, pallas_point,
 state_k15, state_k13, srs_file, exp_mul (all by default); the parts named
 replace their entries in the existing file.
 """
@@ -71,11 +74,13 @@ VOTER_SEED = 20260817
 MSM_SEED, MSM_N = 25, 20
 REDUCE_SEED = 26
 REDUCE_CASES = ((3, 3, True), (3, 2, False))  # (c, W, signed)
+LADDER_SEED, LADDER_CASES = 29, ((16, 1), (3, 2))  # (c, W)
 PLUME_K, PLUME_LOOKUP_BITS = 21, 14
 POINT_SEED, POINT_N = 27, 8
 STATE_K, STATE_SMALL_K, STATE_SEED = 15, 13, 20260817
 EXP_MUL_SEED, EXP_MUL_N = 28, 256
-PARTS = ("k7", "voter_k13", "msm", "reduce", "plume", "pallas_point",
+PARTS = ("k7", "voter_k13", "msm", "reduce", "ladder", "plume",
+         "pallas_point",
          "state_k15", "state_k13", "srs_file", "exp_mul")
 
 
@@ -291,6 +296,36 @@ def part_msm() -> dict:
 
 def part_reduce() -> dict:
     return {"fused_reduce": [reduce_case(*case) for case in REDUCE_CASES]}
+
+
+def ladder_case(c: int, W: int) -> dict:
+    """K6 of the JAX package alone, eagerly on the CPU (the direct path),
+    on W seeded window sums."""
+    import jax.numpy as jnp
+
+    from zksnap_tpu.curves.fused import ladder_tree_fused
+    from zksnap_tpu.curves.native import BN254_G1, AffinePoint
+    from zksnap_tpu.curves.proj import bn254_proj_ops
+
+    ops = bn254_proj_ops()
+    F = ops.F
+    rng = random.Random(LADDER_SEED + c * 100 + W)
+    g = AffinePoint.generator(BN254_G1)
+    q = BN254_G1.p
+    rows = []
+    for _ in range(W):
+        pt, lam = rng.randrange(1, BN254_G1.n) * g, rng.randrange(1, q)
+        rows.append([pt.x * lam % q, pt.y * lam % q, lam])
+    ws = tuple(jnp.asarray(F.to_mont([r[i] for r in rows]))
+               for i in range(3))
+    with jax.disable_jit():
+        t = ladder_tree_fused(ws, c, W, F.p, int(F.n0), b3=ops.b3)
+    return {"c": c, "W": W, "inputs": [[str(v) for v in r] for r in rows],
+            "ladder": [str(F.from_mont(a)) for a in t]}
+
+
+def part_ladder() -> dict:
+    return {"ladder_small": [ladder_case(*case) for case in LADDER_CASES]}
 
 
 def part_plume() -> dict:

@@ -1,29 +1,42 @@
-"""Time the port's K4 (bucket scan) and K5 (weighted suffix) in two
-checkouts on one card, in turns, at the k=21 path's shapes and at the
-small ones (K4 at k=13, K5 at K=7).
+"""Time the port's K3 (point formulas), K4 (bucket scan), K5 (weighted
+suffix) and K6 (ladder and tree) in other checkouts and this one on one
+card, in turns.
 
-    python3 scripts/torch_kernel_ab.py OTHER_DIR [--out chiprun_out/ab.json]
+    python3 scripts/torch_kernel_ab.py OTHER_DIR [OTHER_DIR ...] [--out chiprun_out/ab.json]
 
-OTHER_DIR holds another checkout's `zksnap_tpu_torch` (for example the
-parent commit: `git archive <commit> zksnap_tpu_torch | tar -x -C
-build/parent`).  Each turn is a process of its own with one checkout
-first on sys.path: it builds that checkout's kernels (kept in the
-checkout's own build directory), makes the same seeded inputs as
-chip_smoke.py's k=21 shapes (K4: a variable-base pass of 2 x 2^21
-signed-digit pairs, M = 32768 lanes x K = 128 steps; K5: W = 16 windows
-of B = 2^15 bucket sums, identities and P beside -P among them), and
-the small shapes (K4: the k=13 fixed-base stream, 16 x 8192 pairs over
-M = 32768 lanes x K = 4 steps; K5: W = 32 windows of B = 128), and
-calls the checkout's own `bucket_scan` and `weighted_suffix`: CUDA events
-over repeated calls, and the profiler's device time of each kernel, and
-of K4 at 1 to 128 steps a lane; it
-also reads the kernels' ptxas lines and SASS mix (chip_smoke.py's
-`ptxas_entries` and `kernel_sass`; cuobjdump is required).  The
-turns run OTHER, this tree, this tree, OTHER.  K4's outputs must be the
-same bytes in every turn; K5's the same points (X1 Z2 = X2 Z1 and
-Y1 Z2 = Y2 Z1), since a redesign may add in another order.  Device
-times are given for each kernel: ms a call and launches a call.  Prints one
-JSON line with every turn and the card's name and power limit.
+Each OTHER_DIR holds another checkout's `zksnap_tpu_torch` (for example
+the parent commit: `git archive <commit> zksnap_tpu_torch | tar -x -C
+build/parent`).  The turns run the others, this tree twice, then the
+others in reverse (one other: OTHER, this, this, OTHER).  Each turn is
+a process of its own with one checkout first on sys.path: it builds that
+checkout's kernels (kept in the checkout's own build directory), makes
+the same seeded inputs, calls the checkout's own `point`,
+`bucket_scan`, `weighted_suffix` and `ladder_tree`, and reads CUDA
+events over repeated calls and the profiler's device time of each
+kernel.  The shapes:
+
+  * K3: padd at n = 32768 (the k=21 path's lane carries) and n = 8192
+    (the k=13 path's), pmadd and pdbl at n = 8192, on chip_smoke.py's
+    seeded points (identities, P == Q and P == -P among them);
+  * K4: a variable-base pass of 2 x 2^21 signed-digit pairs, M = 32768
+    lanes x K = 128 steps (k=21), and the k=13 fixed-base stream, 16 x
+    8192 pairs over M = 32768 lanes x K = 4 steps; then K4's device ms a
+    launch at 1 to 128 steps a lane;
+  * K5: W = 16 windows of B = 2^15 bucket sums (k=21) and W = 32 of 128
+    (K=7);
+  * K6: (c, W) = (16, 16) (k=21) and (8, 32) (K=7), and its device ms a
+    launch at c = 16 for W = 1, 2, 4, 8, 16 (0 to 240 dependent
+    doublings), fitted by least squares as a + b c (W - 1): b is the
+    dependent chain's microseconds a doubling.
+
+Each turn also reads the kernels' ptxas lines and SASS mix
+(chip_smoke.py's `ptxas_entries` and `kernel_sass`; cuobjdump is
+required).  K3's, K4's and K6's outputs must be the same bytes in every
+turn; K5's the same points (X1 Z2 = X2 Z1 and Y1 Z2 = Y2 Z1), since a
+redesign may add in another order.  Device times are given for each
+kernel: ms a call and launches a call.  Prints one JSON line with every
+turn and the card's name and power limit; the whole record goes to
+--out.
 """
 
 from __future__ import annotations
@@ -38,7 +51,7 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# K4's and K5's kernels, by the names of either checkout (K5 was one
+# K3's to K6's kernels, by the names of any checkout (K5 was one
 # `weighted_suffix_kernel` before its chunked form)
 SCAN_NAMES = ("bucket_scan_kernel", "weighted_suffix_kernel",
               "suffix_chunk_total_kernel", "suffix_carry_kernel",
@@ -69,16 +82,18 @@ def turn(tree: str, k5_out: str) -> dict:
     assert os.path.samefile(pkg_root, tree), (pkg_root, tree)
     lib = kernels.build()
     kernels.library()
+    # K3's projective kinds and K6's RCB kernel beside them
+    names = SCAN_NAMES + cs.INLINED_KERNELS
     with open(os.path.join(os.path.dirname(lib),
                            f"build_{kernels.source_hash()}.log")) as f:
         ptxas = {k: v for k, v in cs.ptxas_entries(f.read()).items()
-                 if any(s in k for s in SCAN_NAMES)}
-    sass = cs.kernel_sass(lib, SCAN_NAMES)
+                 if any(s in k for s in names)}
+    sass = cs.kernel_sass(lib, names)
     dev = torch.device("cuda", 0)
     Fq, b3 = bn254_fq(), 3 * BN254_G1.b
     rng = random.Random(20261017)
     gen = torch.Generator().manual_seed(20261017)
-    _, _, Qa = cs.point_inputs(BN254_G1, Fq, 8192, rng, dev, False)
+    P, Qg, Qa = cs.point_inputs(BN254_G1, Fq, 8192, rng, dev, False)
     M, K = 32768, 128
     idx = torch.randint(0, 8192, (M * K,), generator=gen).to(dev)
     pts = tuple(a[idx] for a in Qa)
@@ -96,27 +111,59 @@ def turn(tree: str, k5_out: str) -> dict:
                          ids_s[1:] != ids_s[:-1]]).to(dev)
     W_s, B_s = 32, 128
     flat_s = cs.reduce_inputs(Fq, BN254_G1, W_s * B_s, rng, dev)
+    # K3 at the k=21 lane carries: 32768 rows drawn from the 8192
+    pick = torch.randint(0, 8192, (32768,), generator=gen).to(dev)
+    padd21 = [a[pick] for a in P + Qg]
+    # K6's window sums: the k=21 and K=7 shapes (identities, P beside -P
+    # and equal sums among them), then the fit's narrower ones, general
+    # points
+    wsums = {(c, w): cs.reduce_inputs(Fq, BN254_G1, w, rng, dev)
+             for c, w in ((16, 16), (8, 32))}
+    rows = cs.reduce_inputs(Fq, BN254_G1, 24, rng, dev)
+    for c, w in cs.LADDER_FIT[:-1]:
+        wsums[c, w] = tuple(a[6 : 6 + w].contiguous() for a in rows)
+
+    def point(kind, ins):
+        return lambda: fused.point(kind, ins, Fq.p, b3)
+
+    def ladder(c, w):
+        return lambda: fused.ladder_tree(wsums[c, w], c, w, Fq.p, b3)
+
     calls = {
+        "k3_padd_n32768": (point("padd", padd21), 200),
+        "k3_padd_n8192": (point("padd", list(P + Qg)), 200),
+        "k3_pmadd_n8192": (point("pmadd", list(P + Qa)), 200),
+        "k3_pdbl_n8192": (point("pdbl", list(P)), 200),
         "k4": (lambda: fused.bucket_scan(pts, flags, M, K, Fq.p, b3), 10),
         "k5": (lambda: fused.weighted_suffix(flat, B, Fq.p, b3), 5),
         "k4_k13": (lambda: fused.bucket_scan(Qs, flags_s, M, 4, Fq.p, b3),
                    50),
-        "k5_k7": (lambda: fused.weighted_suffix(flat_s, B_s, Fq.p, b3), 50)}
+        "k5_k7": (lambda: fused.weighted_suffix(flat_s, B_s, Fq.p, b3), 50),
+        "k6": (ladder(16, 16), 20),
+        "k6_k7": (ladder(8, 32), 20)}
+    out = {"tree": tree, "ptxas": ptxas, "sass": sass}
+    for tag, keys in (("k3", [k for k in calls if k.startswith("k3")]),
+                      ("k4", ("k4", "k4_k13"))):
+        h = hashlib.sha256()
+        for key in keys:
+            for a in calls[key][0]():
+                h.update(a.cpu().numpy().tobytes())
+        out[f"{tag}_sha256"] = h.hexdigest()
     h = hashlib.sha256()
-    for key in ("k4", "k4_k13"):
-        for a in calls[key][0]():
+    for c, w in wsums:
+        for a in ladder(c, w)():
             h.update(a.cpu().numpy().tobytes())
+    out["k6_sha256"] = h.hexdigest()
     torch.save([[a.cpu() for a in calls[key][0]()] for key in ("k5", "k5_k7")],
                k5_out)
-    out = {"tree": tree, "ptxas": ptxas, "sass": sass,
-           "k4_sha256": h.hexdigest()}
     for key, (fn, reps) in calls.items():
         _, by = cs.device_time(lambda: [fn() for _ in range(reps)])
         out[f"{key}_ms"] = cs.cuda_ms(fn, reps)
         # each kernel's device ms a call and launches a call
         out[f"{key}_device_ms"] = {
             k: [v[1] / reps, v[0] / reps] for k, v in by.items()
-            if any(n in k for n in SCAN_NAMES)}
+            if any(n in k for n in SCAN_NAMES + ("point_kernel",
+                                                 "ladder_tree_kernel"))}
     # K4's device ms a launch against its steps a lane (M lanes, the
     # first M * K pairs of the k=21 stream): its fixed cost a launch
     # apart from its cost a step
@@ -129,6 +176,15 @@ def turn(tree: str, k5_out: str) -> dict:
             for _ in range(20)])
         out["k4_by_steps"][steps] = sum(
             v[1] for k, v in by.items() if "bucket_scan" in k) / 20
+    # K6's device ms a launch against its dependent doublings c (W - 1)
+    out["k6_by_doublings"] = {}
+    for c, w in cs.LADDER_FIT:
+        _, by = cs.device_time(lambda: [ladder(c, w)() for _ in range(20)])
+        out["k6_by_doublings"][c * (w - 1)] = sum(
+            v[1] for k, v in by.items() if "ladder_tree" in k) / 20
+    xs = sorted(out["k6_by_doublings"])
+    a, b = cs.fit_line(xs, [out["k6_by_doublings"][x] for x in xs])
+    out["k6_fit_us"] = {"a": a * 1e3, "b_per_doubling": b * 1e3}
     return out
 
 
@@ -150,7 +206,7 @@ def same_points(a, b) -> bool:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("other")
+    ap.add_argument("others", nargs="+")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "ab.json"))
     ap.add_argument("--turn", help=argparse.SUPPRESS)
@@ -162,24 +218,28 @@ def main(argv=None):
     import torch
 
     sys.path.insert(0, ROOT)
-    other = os.path.abspath(args.other)
+    others = [os.path.abspath(o) for o in args.others]
     work = os.path.join(ROOT, "build", "ab")
     os.makedirs(work, exist_ok=True)
     turns = []
-    for i, tree in enumerate((other, ROOT, ROOT, other)):
+    order = others + [ROOT, ROOT] + others[::-1]
+    for i, tree in enumerate(order):
         k5_out = os.path.join(work, f"k5_{i}.pt")
         res = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), args.other,
+            [sys.executable, os.path.abspath(__file__), tree,
              "--turn", tree, "--k5-out", k5_out],
             stdout=subprocess.PIPE, text=True, check=True)
         turns.append(json.loads(res.stdout.strip().splitlines()[-1]))
         t = turns[-1]
         print(json.dumps({k: v for k, v in t.items()
                           if k not in ("ptxas", "sass")}), flush=True)
-    k5 = [torch.load(os.path.join(work, f"k5_{i}.pt")) for i in range(4)]
-    checks = {"k4_same_bytes": len({t["k4_sha256"] for t in turns}) == 1,
-              "k5_same_points": all(same_points(k5[0][j], k5[i][j])
-                                    for i in (1, 2, 3) for j in (0, 1))}
+    k5 = [torch.load(os.path.join(work, f"k5_{i}.pt"))
+          for i in range(len(order))]
+    checks = {f"{k}_same_bytes": len({t[f"{k}_sha256"] for t in turns}) == 1
+              for k in ("k3", "k4", "k6")}
+    checks["k5_same_points"] = all(same_points(k5[0][j], k5[i][j])
+                                   for i in range(1, len(order))
+                                   for j in (0, 1))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

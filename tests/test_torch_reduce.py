@@ -6,13 +6,14 @@ JAX `msm_impl` chains them, are frozen in tests/vectors/torch_port_v1.json
 (`fused_reduce`, by scripts/gen_torch_port_vectors.py: eager JAX takes
 about 40 s a case on the CPU) for c=3, W=3 with signed digits and c=3,
 W=2 unsigned, on seeded bucket sums with identity buckets, a window of
-identities, P beside -P and equal buckets.  The port's plain K6 must
+identities, P beside -P and equal buckets, and `ladder_tree_fused`
+alone at W = 1 and W = 2 (`ladder_small`).  The port's plain K6 must
 give the same projective integers mod p (the JAX CPU path keeps values
-lazy in [0, 2p)) from the frozen JAX double suffix; the port's plain K5
-adds in another order than the JAX kernel's rounds (a chunked,
-work-efficient suffix), so its double suffix is compared with the JAX
-one as affine points, and with the python-int oracle's at small shapes
-in both coordinate systems.  The port's
+lazy in [0, 2p)) from the frozen JAX double suffix and window sums;
+the port's plain K5 adds in another order than the JAX kernel's rounds
+(a chunked, work-efficient suffix), so its double suffix is compared
+with the JAX one as affine points, and with the python-int oracle's at
+small shapes in both coordinate systems.  The port's
 `msm_impl` at n=128 (c=8, W=32) gives the oracle's point with the fused
 reduction on and off.  The PLUME voter's synthesis at k=21 is held to the
 frozen JAX stats, instances and layout shape (slow: about 80 s).
@@ -94,6 +95,24 @@ def test_plain_versions_match_frozen_jax(v):
     assert _ints(t) == v["ladder"]
 
 
+LADDER = _vectors("ladder_small")
+
+
+@pytest.mark.parametrize("v", LADDER, ids=[f"c{v['c']}_W{v['W']}"
+                                          for v in LADDER])
+def test_ladder_tree_plain_matches_jax(v):
+    """K6's plain version at W = 1 and W = 2 gives the JAX
+    `ladder_tree_fused`'s integers (frozen: its eager CPU call takes
+    about 25 s), which are the oracle's sum_w 2^(c*w) S_w."""
+    F = bn254_fq()
+    t = fused.ladder_tree(_flat(v), v["c"], v["W"], F.p, B3)
+    assert _ints(t) == v["ladder"]
+    want = AffinePoint.identity(BN254_G1)
+    for w, r in enumerate(v["inputs"]):
+        want = want + (1 << (v["c"] * w)) * _affine(r)
+    assert _affine(v["ladder"]) == want
+
+
 @pytest.mark.parametrize("v", CASES, ids=IDS)
 def test_frozen_reduction_against_oracle(v):
     """The frozen points are the oracle's: s2[w*B + b] is
@@ -122,6 +141,28 @@ def _jac_affine(xyz) -> AffinePoint:
         return AffinePoint.identity(BN254_G1)
     zi = pow(z, -1, q)
     return AffinePoint(BN254_G1, x * zi * zi % q, y * zi * zi * zi % q)
+
+
+@pytest.mark.parametrize("v", LADDER, ids=[f"c{v['c']}_W{v['W']}"
+                                          for v in LADDER])
+def test_ladder_tree_plain_jacobian_against_oracle(v):
+    """K6's plain version in Jacobian coordinates (b3 == 0) on the same
+    window sums as a general (X : Y : Z) = (x l^2 : y l^3 : l) gives the
+    oracle's sum_w 2^(c*w) S_w."""
+    q = BN254_G1.p
+    rng = random.Random(v["c"] * 100 + v["W"])
+    rows = []
+    for r in v["inputs"]:
+        pt, lam = _affine(r), rng.randrange(1, q)
+        rows.append((0, lam, 0) if pt.is_identity() else
+                    (lam * lam * pt.x % q, lam ** 3 * pt.y % q, lam))
+    F = bn254_fq()
+    flat = tuple(F.to_mont([r[i] for r in rows], DEV) for i in range(3))
+    got = _jac_affine(_ints(fused.ladder_tree(flat, v["c"], v["W"], F.p, 0)))
+    want = AffinePoint.identity(BN254_G1)
+    for w, r in enumerate(v["inputs"]):
+        want = want + (1 << (v["c"] * w)) * _affine(r)
+    assert got == want
 
 
 # (W, B, SUFFIX_LANES, CARRY_GROUP, CARRY_THREADS) of the small K5
@@ -260,7 +301,7 @@ def test_plume_synthesis_matches_frozen_jax():
             "ext_log": quotient_ext_log(lay.n_lookup)} == v["vk_shape"]
 
 
-# -- what chip_smoke.py reads of K4's and K5's kernels ------------------------
+# -- what chip_smoke.py reads of K3's to K6's kernels ------------------------
 
 def test_formula_bound_takes_the_slowest_pipe():
     """The point formulas' bound: products on the IMAD pipe, adds and the
@@ -340,3 +381,52 @@ def test_kernel_sass_reads_loop_and_subroutines(monkeypatch):
     assert subs["0x100"]["call_sites"] == 1
     assert subs["0x100"]["IMAD*"] == 1 and subs["0x100"]["LDL/STL"] == 1
     assert subs["0x10"]["all"] == 7
+
+
+def test_inlined_reads_frame_and_calls(monkeypatch):
+    """The report of the kernels that must run inlined: each one's
+    registers and stack frame from its ptxas lines, its CALLs from every
+    part of its SASS listing; one with a frame or a CALL fails the run."""
+    import types
+
+    import chip_smoke as cs
+
+    log = """ptxas info    : Compiling entry function '_Z12point_kernelILi3ELi2EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z12point_kernelILi3ELi2EEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 122 registers, used 0 barriers
+ptxas info    : Compiling entry function '_Z18ladder_tree_kernelILb1EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z18ladder_tree_kernelILb1EEvv
+    648 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 648 bytes cumulative stack size
+"""
+    listing = {"_Z12point_kernelILi3ELi2EEvv": ["IMAD.WIDE.U32 R2, R4, R5, R2",
+                                               "EXIT"],
+               "_Z18ladder_tree_kernelILb1EEvv": ["CALL.REL.NOINC 0x100",
+                                                  "EXIT", "CALL.REL.NOINC 0x100",
+                                                  "RET.REL.NODEC R20 0x0"]}
+    lines = []
+    for name, ops in listing.items():
+        lines.append(f"\t\tFunction : {name}")
+        addrs = [0x10, 0x20, 0x100, 0x110][:len(ops)]
+        lines += [f"        /*{a:04x}*/{' ' * 19}{op} ;"
+                  for a, op in zip(addrs, ops)]
+    sass = "\n".join(lines) + "\n"
+    monkeypatch.setattr(cs.os.path, "exists", lambda path: True)
+    monkeypatch.setattr(cs.subprocess, "run", lambda *a, **k:
+                        types.SimpleNamespace(stdout=sass))
+    frags = ("point_kernelILi3E", "ladder_tree_kernelILb1E")
+    got = cs.inlined(cs.ptxas_entries(log), cs.kernel_sass("lib.so", frags),
+                     frags)
+    assert got == {
+        "point_kernelILi3E": {"kernel": "_Z12point_kernelILi3ELi2EEvv",
+                              "registers": 122, "stack_bytes": 0,
+                              "calls": 0},
+        "ladder_tree_kernelILb1E": {"kernel": "_Z18ladder_tree_kernelILb1EEvv",
+                                    "registers": 128, "stack_bytes": 648,
+                                    "calls": 2}}
+    cs.require_inlined({"point_kernelILi3E": got["point_kernelILi3E"]})
+    with pytest.raises(RuntimeError, match="not inlined"):
+        cs.require_inlined(got)
+    with pytest.raises(RuntimeError, match="one kernel"):
+        cs.inlined(cs.ptxas_entries(log), {}, frags)

@@ -5,76 +5,108 @@
 // complete projective, a = 0) and add, madd, dbl (Jacobian with branchless
 // completeness selects).  The TPU kernel transposes to limb-major [16, n]
 // tiles padded to 128- or 1024-lane blocks; this one reads the port's
-// [n, 16] rows directly, one thread per point, the ragged edge masked.
+// [n, 16] rows directly, the ragged edge masked.
 //
-// Bounds on the H100: integer-ALU bound, 11-21 Montgomery multiplies per
-// point for 3-6 x 64 bytes read and 192 bytes written.  The multiply is
-// one out-of-line function to keep the build short; inlining it, the lazy
-// [0, 2p) form of the TPU kernels and register tuning are left for later.
+// Bound on the H100: the IMAD pipe.  A padd is 12 Montgomery products
+// (3,168 32-bit multiply results) against 6 x 64 bytes read and 3 x 64
+// written.  The prover's kinds, padd, pmadd and pdbl, are point_inline.cuh's
+// inlined formulas (no stack frame, a stage's products side by side),
+// shared by POINT_GROUP adjacent threads a point (fe_mul_group): twice
+// the warps of one thread a point, each thread holding half of a stage's
+// products, so that more warps hide the products' latency.  zk_point
+// picks the threads a block from n and the caller's SM count so that the
+// grid covers every SM where n allows (point_threads): at the k=13 path's
+// n = 8192 blocks of 128 threads would leave most of the card idle.  A
+// group past the end computes the last row and stores nothing, so that
+// every thread of a warp reaches the group's shuffles.  The Jacobian kinds
+// (off the prover's path) keep point.cuh's out-of-line formulas, one
+// thread a point.
 
-#include "point.cuh"
+#include "point_inline.cuh"
 
-template <int KIND>
-__global__ void __launch_bounds__(128)
+constexpr int POINT_THREADS = 128;  // the most threads a block
+constexpr int POINT_GROUP = 2;      // threads a point of the RCB kinds
+
+// At least three blocks an SM, so at most 170 registers a thread: bound
+// to four (128 registers), padd ran 4 % slower at n = 8192 on the H100.
+template <int KIND, int T>
+__global__ void __launch_bounds__(POINT_THREADS, 3)
 point_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
              const int32_t* __restrict__ z1, const int32_t* __restrict__ x2,
              const int32_t* __restrict__ y2, const int32_t* __restrict__ z2,
              int32_t* __restrict__ ox, int32_t* __restrict__ oy,
              int32_t* __restrict__ oz, long long n, int b3, Modulus M) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  long long o = i * 16;
+  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / T;
+  const long long o = (i < n ? i : n - 1) * 16;
   Pt p{fe_load(x1 + o), fe_load(y1 + o), fe_load(z1 + o)};
   Pt r;
-  if (KIND == K_DBL) {
+  if constexpr (KIND == K_DBL) {
     r = jdbl(p, M);
-  } else if (KIND == K_PDBL) {
-    r = pdbl(p, b3, M);
+  } else if constexpr (KIND == K_PDBL) {
+    r = pdbl_inl<T>(p, b3, M);
   } else {
     Pt q{fe_load(x2 + o), fe_load(y2 + o), fe_load(z2 + o)};
-    if (KIND == K_ADD) r = jadd<false>(p, q, M);
-    if (KIND == K_MADD) r = jadd<true>(p, q, M);
-    if (KIND == K_PADD) r = padd<false>(p, q, b3, M);
-    if (KIND == K_PMADD) r = padd<true>(p, q, b3, M);
+    if constexpr (KIND == K_ADD) r = jadd<false>(p, q, M);
+    if constexpr (KIND == K_MADD) r = jadd<true>(p, q, M);
+    if constexpr (KIND == K_PADD) r = padd_inl<T>(p, q, b3, M);
+    if constexpr (KIND == K_PMADD) r = padd_mixed_inl<T>(p, q, b3, M);
   }
-  fe_store(ox + o, r.x);
-  fe_store(oy + o, r.y);
-  fe_store(oz + o, r.z);
+  if (i < n) pt_store_share<T>(ox, oy, oz, i, r);
+}
+
+struct PointArgs {
+  const int32_t *x1, *y1, *z1, *x2, *y2, *z2;
+  int32_t *ox, *oy, *oz;
+  long long n;
+  int b3;
+};
+
+template <int KIND, int T>
+static void launch_point(const PointArgs& a, unsigned blocks, int threads,
+                         const Modulus& M, cudaStream_t s) {
+  point_kernel<KIND, T><<<blocks, threads, 0, s>>>(
+      a.x1, a.y1, a.z1, a.x2, a.y2, a.z2, a.ox, a.oy, a.oz, a.n, a.b3, M);
+}
+
+// Threads a block for `work` threads on `sms` SMs: the largest power of
+// two up to POINT_THREADS that still gives every SM a block, or one warp
+// where work is too little for that.
+static int point_threads(long long work, int sms) {
+  int threads = POINT_THREADS;
+  while (threads > 32 && (work + threads - 1) / threads < sms) threads /= 2;
+  return threads;
 }
 
 extern "C" int zk_point(int kind, const void* x1, const void* y1,
                         const void* z1, const void* x2, const void* y2,
                         const void* z2, void* ox, void* oy, void* oz,
-                        long long n, int b3, const void* mod, void* stream) {
+                        long long n, int b3, int sms, const void* mod,
+                        void* stream) {
   if (n <= 0) return 0;
   Modulus M = modulus_from_words(static_cast<const uint32_t*>(mod));
-  const int threads = 128;
-  unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  const bool proj = kind == K_PADD || kind == K_PMADD || kind == K_PDBL;
+  const long long work = n * (proj ? POINT_GROUP : 1);
+  const int threads = point_threads(work, sms);
+  const unsigned blocks = (unsigned)((work + threads - 1) / threads);
   cudaStream_t s = (cudaStream_t)stream;
-  auto X1 = static_cast<const int32_t*>(x1), Y1 = static_cast<const int32_t*>(y1),
-       Z1 = static_cast<const int32_t*>(z1), X2 = static_cast<const int32_t*>(x2),
-       Y2 = static_cast<const int32_t*>(y2), Z2 = static_cast<const int32_t*>(z2);
-  auto OX = static_cast<int32_t*>(ox), OY = static_cast<int32_t*>(oy),
-       OZ = static_cast<int32_t*>(oz);
+  const PointArgs a{static_cast<const int32_t*>(x1),
+                    static_cast<const int32_t*>(y1),
+                    static_cast<const int32_t*>(z1),
+                    static_cast<const int32_t*>(x2),
+                    static_cast<const int32_t*>(y2),
+                    static_cast<const int32_t*>(z2),
+                    static_cast<int32_t*>(ox),
+                    static_cast<int32_t*>(oy),
+                    static_cast<int32_t*>(oz),
+                    n,
+                    b3};
   switch (kind) {
-    case K_ADD:
-      point_kernel<K_ADD><<<blocks, threads, 0, s>>>(X1, Y1, Z1, X2, Y2, Z2, OX, OY, OZ, n, b3, M);
-      break;
-    case K_MADD:
-      point_kernel<K_MADD><<<blocks, threads, 0, s>>>(X1, Y1, Z1, X2, Y2, Z2, OX, OY, OZ, n, b3, M);
-      break;
-    case K_DBL:
-      point_kernel<K_DBL><<<blocks, threads, 0, s>>>(X1, Y1, Z1, X2, Y2, Z2, OX, OY, OZ, n, b3, M);
-      break;
-    case K_PADD:
-      point_kernel<K_PADD><<<blocks, threads, 0, s>>>(X1, Y1, Z1, X2, Y2, Z2, OX, OY, OZ, n, b3, M);
-      break;
-    case K_PMADD:
-      point_kernel<K_PMADD><<<blocks, threads, 0, s>>>(X1, Y1, Z1, X2, Y2, Z2, OX, OY, OZ, n, b3, M);
-      break;
-    case K_PDBL:
-      point_kernel<K_PDBL><<<blocks, threads, 0, s>>>(X1, Y1, Z1, X2, Y2, Z2, OX, OY, OZ, n, b3, M);
-      break;
+    case K_ADD: launch_point<K_ADD, 1>(a, blocks, threads, M, s); break;
+    case K_MADD: launch_point<K_MADD, 1>(a, blocks, threads, M, s); break;
+    case K_DBL: launch_point<K_DBL, 1>(a, blocks, threads, M, s); break;
+    case K_PADD: launch_point<K_PADD, POINT_GROUP>(a, blocks, threads, M, s); break;
+    case K_PMADD: launch_point<K_PMADD, POINT_GROUP>(a, blocks, threads, M, s); break;
+    case K_PDBL: launch_point<K_PDBL, POINT_GROUP>(a, blocks, threads, M, s); break;
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,12 +1,13 @@
-// Group-law formula bodies for a = 0 short-Weierstrass curves, shared by
-// the point kernel (point.cu) and the bucket scan (bucket_scan.cu).
+// The Jacobian group-law formula bodies for a = 0 short-Weierstrass
+// curves, out of line: the point kernel's Jacobian kinds (point.cu), K7
+// and K8 (pallas_point.cu) and the Jacobian branches of K4, K5 and K6.
 //
-// One-to-one translations of zksnap_tpu/curves/fused.py: `_dbl_body_proj`,
-// `_add_body_proj` (RCB 2015 Algorithms 7-9, complete projective, identity
-// (0:1:0)) and `_dbl_body`, `_add_body` (Jacobian dbl-2009-l and
-// add-2007-bl / madd-2007-bl with branchless completeness selects, identity
-// z = 0).  Every field value stays canonical; the TPU kernels' lazy [0, 2p)
-// form is left for later.
+// One-to-one translations of zksnap_tpu/curves/fused.py `_dbl_body` and
+// `_add_body` (dbl-2009-l and add-2007-bl / madd-2007-bl with branchless
+// completeness selects, identity z = 0).  Every field value stays
+// canonical; the TPU kernels' lazy [0, 2p) form is left for later.  The
+// RCB projective formulas (Algorithms 7-9), the prover's, are inlined
+// from point_inline.cuh.
 #pragma once
 
 #include "field.cuh"
@@ -18,59 +19,6 @@ struct Pt {
 __device__ __forceinline__ Pt pt_select(bool c, const Pt& a, const Pt& b) {
   return Pt{fe_select(c, a.x, b.x), fe_select(c, a.y, b.y),
             fe_select(c, a.z, b.z)};
-}
-
-// RCB 2015 Algorithm 9: complete projective doubling.
-static __device__ __noinline__ Pt pdbl(const Pt& p, int b3, const Modulus& M) {
-  Fe t0 = fe_sqr(p.y, M);
-  Fe z3 = fe_dbl(fe_dbl(fe_dbl(t0, M), M), M);
-  Fe t1 = fe_mul(p.y, p.z, M);
-  Fe t2 = fe_small_mul(fe_sqr(p.z, M), b3, M);
-  Fe x3 = fe_mul(t2, z3, M);
-  Fe y3 = fe_add(t0, t2, M);
-  z3 = fe_mul(t1, z3, M);
-  t1 = fe_dbl(t2, M);
-  t2 = fe_add(t1, t2, M);
-  t0 = fe_sub(t0, t2, M);
-  y3 = fe_add(x3, fe_mul(t0, y3, M), M);
-  x3 = fe_dbl(fe_mul(t0, fe_mul(p.x, p.y, M), M), M);
-  return Pt{x3, y3, z3};
-}
-
-// RCB 2015 Algorithm 7 (MIXED = false) / Algorithm 8 (MIXED = true, q
-// affine; q.z == 0 encodes the identity and passes p through).
-template <bool MIXED>
-__device__ __noinline__ Pt padd(const Pt& p, const Pt& q, int b3,
-                                const Modulus& M) {
-  Fe t0 = fe_mul(p.x, q.x, M);
-  Fe t1 = fe_mul(p.y, q.y, M);
-  Fe t3, t4, y3, t2m;
-  if (MIXED) {
-    t3 = fe_mul(fe_add(q.x, q.y, M), fe_add(p.x, p.y, M), M);
-    t3 = fe_sub(t3, fe_add(t0, t1, M), M);
-    t4 = fe_add(fe_mul(q.y, p.z, M), p.y, M);
-    y3 = fe_add(fe_mul(q.x, p.z, M), p.x, M);
-    t2m = fe_small_mul(p.z, b3, M);
-  } else {
-    Fe t2 = fe_mul(p.z, q.z, M);
-    t3 = fe_mul(fe_add(p.x, p.y, M), fe_add(q.x, q.y, M), M);
-    t3 = fe_sub(t3, fe_add(t0, t1, M), M);
-    t4 = fe_mul(fe_add(p.y, p.z, M), fe_add(q.y, q.z, M), M);
-    t4 = fe_sub(t4, fe_add(t1, t2, M), M);
-    y3 = fe_mul(fe_add(p.x, p.z, M), fe_add(q.x, q.z, M), M);
-    y3 = fe_sub(y3, fe_add(t0, t2, M), M);
-    t2m = fe_small_mul(t2, b3, M);
-  }
-  Fe t0_3 = fe_add(fe_dbl(t0, M), t0, M);
-  Fe z3 = fe_add(t1, t2m, M);
-  t1 = fe_sub(t1, t2m, M);
-  y3 = fe_small_mul(y3, b3, M);
-  Fe x3 = fe_sub(fe_mul(t3, t1, M), fe_mul(t4, y3, M), M);
-  y3 = fe_add(fe_mul(t1, z3, M), fe_mul(y3, t0_3, M), M);
-  z3 = fe_add(fe_mul(z3, t4, M), fe_mul(t0_3, t3, M), M);
-  Pt r{x3, y3, z3};
-  if (MIXED) r = pt_select(fe_is_zero(q.z), p, r);
-  return r;
 }
 
 // dbl-2009-l (a = 0); the identity (z = 0) doubles to z = 0.

@@ -45,17 +45,27 @@
 //
 // K6 replaces zksnap_tpu/curves/fused.py `_ladder_tree_call` (reached
 // through `ladder_tree_fused`): T = sum_w 2^(c*w) S_w over 128 lanes (lane
-// w < W holds window w's weighted sum, the rest (0 : 1 : 0)).  One block of
-// 128 threads, one lane each: the masked doubling ladder (lane w doubles
-// while i < c*w, for i < c*(W-1)) runs in registers; the 7 rounds of the
-// suffix tree pass neighbours through shared memory with a barrier between
-// rounds; lanes past the end read (0 : 1 : 0).  Operand order is the JAX
-// kernel's, so the result is bit-exact against the plain version.
+// w < W holds window w's weighted sum, the rest (0 : 1 : 0)).  One block:
+// the masked doubling ladder (lane w doubles while i < c*w, for
+// i < c*(W-1)) runs in registers; the 7 rounds of the suffix tree pass
+// neighbours through shared memory with a barrier between rounds; lanes
+// past the end read (0 : 1 : 0).  Operand order is the JAX kernel's, so
+// the result is bit-exact against the plain version.
 //   Bound on the H100: latency.  One SM runs c*(W-1) dependent doublings
 // (240 at k = 21, 248 at K = 7) and 7 dependent additions.  The function
 // itself (Horner's combine: c*(W-1) doublings and W-1 additions) is
 // microseconds of the card's rate; the chain of dependent doublings is
-// what the kernel waits on.
+// what the kernel waits on, and each link of it is a formula's stages of
+// products.  So the RCB kernel gives a lane a group of LADDER_GROUP = 4
+// threads: the four products of a doubling's stage, one a thread, and
+// the six of an addition's, two a thread, are exchanged by shuffles
+// (point_inline.cuh's fe_mul_group), and a doubling waits on about two
+// product latencies, not eight.  The inlined formulas keep the stack
+// empty; both loops stay rolled for the instruction cache.  The kernel
+// reads the W window sums only; lanes past W hold (0 : 1 : 0), a fixed
+// point of the RCB doubling and addition, so the warps that hold only
+// such lanes skip their work: at W = 16 two warps of sixteen compute.  The Jacobian branch (b3 == 0, off the
+// prover's path) keeps one thread a lane and point.cuh's calls.
 //
 // Both take RCB projective points for b3 != 0 (padd / pdbl) and Jacobian
 // ones for b3 == 0 (add / dbl), as the TPU kernels do.  Lanes and carries
@@ -77,18 +87,13 @@ __device__ __forceinline__ void pt_store(int32_t* x, int32_t* y, int32_t* z,
   fe_store(z + o, p.z);
 }
 
-template <bool PROJ>
+// K5's and K6's additions: inlined for RCB (shared by a group of T
+// threads), point.cuh's for Jacobian (T = 1).
+template <bool PROJ, int T = 1>
 __device__ __forceinline__ Pt group_add(const Pt& a, const Pt& b, int b3,
                                         const Modulus& M) {
-  return PROJ ? padd<false>(a, b, b3, M) : jadd<false>(a, b, M);
-}
-
-// K5's additions: inlined for RCB, point.cuh's for Jacobian.
-template <bool PROJ>
-__device__ __forceinline__ Pt suffix_add(const Pt& a, const Pt& b, int b3,
-                                         const Modulus& M) {
   if constexpr (PROJ)
-    return padd_inl(a, b, b3, M);
+    return padd_inl<T>(a, b, b3, M);
   else
     return jadd<false>(a, b, M);
 }
@@ -150,7 +155,7 @@ suffix_chunk_total_kernel(const int32_t* __restrict__ x,
   for (int i = C - 2; i >= 0; --i) {
     Pt p = pt_unpack(next);
     if (i > 0) next = pt_fetch(x, y, z, lo + i - 1);
-    u = suffix_add<PROJ>(u, p, b3, M);
+    u = group_add<PROJ>(u, p, b3, M);
   }
   pt_store(tx, ty, tz, j, u);
 }
@@ -175,7 +180,7 @@ suffix_carry_kernel(const int32_t* __restrict__ tx,
   const long long lo = (long long)blockIdx.x * per + (long long)g * L;
   Pt u = pt_load(tx, ty, tz, lo + L - 1);
   for (int i = L - 2; i >= 0; --i)
-    u = suffix_add<PROJ>(u, pt_load(tx, ty, tz, lo + i), b3, M);
+    u = group_add<PROJ>(u, pt_load(tx, ty, tz, lo + i), b3, M);
   const Pt ident = pt_ident(M);
   for (int d = 1; d < G; d <<= 1) {
     sx[g] = u.x;
@@ -184,7 +189,7 @@ suffix_carry_kernel(const int32_t* __restrict__ tx,
     __syncthreads();
     Pt q = g + d < G ? Pt{sx[g + d], sy[g + d], sz[g + d]} : ident;
     __syncthreads();
-    u = suffix_add<PROJ>(u, q, b3, M);
+    u = group_add<PROJ>(u, q, b3, M);
   }
   sx[g] = u.x;
   sy[g] = u.y;
@@ -195,7 +200,7 @@ suffix_carry_kernel(const int32_t* __restrict__ tx,
   for (int i = L - 1;; --i) {
     pt_store(ex, ey, ez, lo + i, run);
     if (i == 0) break;
-    run = suffix_add<PROJ>(run, pt_load(tx, ty, tz, lo + i), b3, M);
+    run = group_add<PROJ>(run, pt_load(tx, ty, tz, lo + i), b3, M);
   }
 }
 
@@ -226,7 +231,7 @@ suffix_chunk_kernel(const int32_t* __restrict__ x,
   PtRaw next;
   if constexpr (!TOTAL) next = pt_fetch(x, y, z, lo + C - 1);
   Pt run = pt_load(ex, ey, ez, j);
-  if (gx) run = suffix_add<PROJ>(pt_load(gx, gy, gz, j / group), run, b3, M);
+  if (gx) run = group_add<PROJ>(pt_load(gx, gy, gz, j / group), run, b3, M);
   Pt tot;
   for (int i = C - 1; i >= 0; --i) {
     Pt p;
@@ -236,10 +241,10 @@ suffix_chunk_kernel(const int32_t* __restrict__ x,
       p = pt_unpack(next);
       if (i > 0) next = pt_fetch(x, y, z, lo + i - 1);
     }
-    run = suffix_add<PROJ>(run, p, b3, M);
+    run = group_add<PROJ>(run, p, b3, M);
     pt_store(ox, oy, oz, lo + i, run);
     if constexpr (TOTAL)
-      tot = i == C - 1 ? run : suffix_add<PROJ>(tot, run, b3, M);
+      tot = i == C - 1 ? run : group_add<PROJ>(tot, run, b3, M);
   }
   if constexpr (TOTAL) pt_store(tx, ty, tz, j, tot);
 }
@@ -335,39 +340,56 @@ extern "C" int zk_weighted_suffix(const void* x, const void* y, const void* z,
 }
 
 constexpr int LADDER_LANES = 128;
+constexpr int LADDER_GROUP = 4;  // threads a lane of the RCB kernel
 
-template <bool PROJ>
-__global__ void __launch_bounds__(LADDER_LANES)
+template <bool PROJ, int T>
+__global__ void __launch_bounds__(LADDER_LANES * T)
 ladder_tree_kernel(const int32_t* __restrict__ x,
                    const int32_t* __restrict__ y,
                    const int32_t* __restrict__ z, int32_t* __restrict__ ox,
                    int32_t* __restrict__ oy, int32_t* __restrict__ oz, int c,
                    int W, int b3, Modulus M) {
   __shared__ Fe sx[LADDER_LANES], sy[LADDER_LANES], sz[LADDER_LANES];
-  const int lane = threadIdx.x;
-  long long o = (long long)lane * 16;
-  Pt a{fe_load(x + o), fe_load(y + o), fe_load(z + o)};
-  // the ladder: step i doubles the lanes with lane * c > i
+  const int lane = threadIdx.x / T;
+  const Pt ident = pt_ident(M);
+  Pt a = lane < W ? pt_load(x, y, z, lane) : ident;
+  // the ladder: step i doubles the lanes with lane * c > i.  An RCB lane
+  // past W holds (0 : 1 : 0), which Algorithm 9 maps to itself bit for
+  // bit, so it skips its doublings; a warp runs as many steps as its
+  // longest lane, the others keeping their point
   const int steps = c * (W - 1);
-  const int mine = lane * c < steps ? lane * c : steps;
-  for (int i = 0; i < mine; ++i) a = PROJ ? pdbl(a, b3, M) : jdbl(a, M);
-  // the suffix tree: a[lane] += a[lane + d], (0 : 1 : 0) past the end
-  const Pt ident{fe_zero(), fe_one(M), fe_zero()};
+  int mine = lane * c < steps ? lane * c : steps;
+  if (PROJ && lane >= W) mine = 0;
+  const int warp_steps = (int)__reduce_max_sync(0xffffffffu, (unsigned)mine);
+#pragma unroll 1
+  for (int i = 0; i < warp_steps; ++i) {
+    Pt d;
+    if constexpr (PROJ)
+      d = pdbl_inl<T>(a, b3, M);
+    else
+      d = jdbl(a, M);
+    a = pt_select(i < mine, d, a);
+  }
+  // the suffix tree: a[lane] += a[lane + d], (0 : 1 : 0) past the end.  In
+  // RCB (0 : 1 : 0) + (0 : 1 : 0) is (0 : 1 : 0) bit for bit, so a warp
+  // whose lanes are all past W keeps its points
+  const bool busy = !PROJ || (int)(threadIdx.x & ~31u) / T < W;
+#pragma unroll 1
   for (int r = 0; r < 7; ++r) {
     const int d = 1 << r;
-    sx[lane] = a.x;
-    sy[lane] = a.y;
-    sz[lane] = a.z;
+    if (threadIdx.x % T == 0) {
+      sx[lane] = a.x;
+      sy[lane] = a.y;
+      sz[lane] = a.z;
+    }
     __syncthreads();
     Pt q = lane + d < LADDER_LANES ? Pt{sx[lane + d], sy[lane + d],
                                         sz[lane + d]}
                                    : ident;
     __syncthreads();
-    a = group_add<PROJ>(a, q, b3, M);
+    if (busy) a = group_add<PROJ, T>(a, q, b3, M);
   }
-  fe_store(ox + o, a.x);
-  fe_store(oy + o, a.y);
-  fe_store(oz + o, a.z);
+  pt_store_share<T>(ox, oy, oz, lane, a);
 }
 
 extern "C" int zk_ladder_tree(const void* x, const void* y, const void* z,
@@ -382,8 +404,11 @@ extern "C" int zk_ladder_tree(const void* x, const void* y, const void* z,
   auto OX = static_cast<int32_t*>(ox), OY = static_cast<int32_t*>(oy),
        OZ = static_cast<int32_t*>(oz);
   if (proj)
-    ladder_tree_kernel<true><<<1, LADDER_LANES, 0, s>>>(X, Y, Z, OX, OY, OZ, c, W, b3, M);
+    ladder_tree_kernel<true, LADDER_GROUP>
+        <<<1, LADDER_LANES * LADDER_GROUP, 0, s>>>(X, Y, Z, OX, OY, OZ, c, W,
+                                                  b3, M);
   else
-    ladder_tree_kernel<false><<<1, LADDER_LANES, 0, s>>>(X, Y, Z, OX, OY, OZ, c, W, b3, M);
+    ladder_tree_kernel<false, 1>
+        <<<1, LADDER_LANES, 0, s>>>(X, Y, Z, OX, OY, OZ, c, W, b3, M);
   ZK_CHECK_RETURN();
 }

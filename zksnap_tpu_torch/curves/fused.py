@@ -98,10 +98,11 @@ def _mont_const(p: int, c: int, device) -> torch.Tensor:
 
 
 # The plain formula bodies.  Each computes the values of the kernel
-# formulas (csrc/point.cuh, a one-to-one translation of the JAX package's
-# fused.py bodies) with canonical field ops, so kernel and plain version
-# agree bit for bit; independent ops of one stage share a call, and small
-# constant factors are one multiply (F.scale).
+# formulas (csrc/point_inline.cuh's RCB ones and csrc/point.cuh's Jacobian
+# ones, translations of the JAX package's fused.py bodies) with canonical
+# field ops, so kernel and plain version agree bit for bit; independent
+# ops of one stage share a call, and small constant factors are one
+# multiply (F.scale).
 
 def _dbl_body_proj(F, x, y, z, b3: int):
     """RCB 2015 Algorithm 9 (a=0): complete projective doubling."""
@@ -270,7 +271,8 @@ def point(kind: str, arrays, p: int, b3: int = 0):
             for _ in range(3)]
     err = kernels.library().zk_point(
         KINDS[kind], *ptrs, *[o.data_ptr() for o in outs], n, int(b3),
-        kernels.mod_ptr(p), kernels.stream_of(outs[0]))
+        kernels.sm_count(dev.index), kernels.mod_ptr(p),
+        kernels.stream_of(outs[0]))
     kernels.check(err, f"zk_point({kind})")
     point.launches += 1
     return tuple(o.reshape(*batch, N_LIMBS) for o in outs)
@@ -508,10 +510,14 @@ def weighted_suffix(flat, B: int, p: int, b3: int = 0):
 weighted_suffix.launches = 0
 
 
-def _ladder_lanes(wsums, W: int, p: int):
-    """[W, 16] window sums -> [128, 16] lanes, (0 : 1 : 0) past W."""
+def _check_ladder(wsums, W: int):
     if not 1 <= W <= LADDER_LANES or wsums[0].shape[0] != W:
         raise ValueError(f"ladder of {W} windows over {LADDER_LANES} lanes")
+
+
+def _ladder_lanes(wsums, W: int, p: int):
+    """[W, 16] window sums -> [128, 16] lanes, (0 : 1 : 0) past W."""
+    _check_ladder(wsums, W)
     pad = _zero_one_zero(LADDER_LANES - W, p, wsums[0].device)
     return tuple(torch.cat([a, b]) for a, b in zip(wsums, pad))
 
@@ -546,11 +552,13 @@ def ladder_tree(wsums, c: int, W: int, p: int, b3: int = 0):
         return ladder_tree_plain(wsums, c, W, p, b3)
     from .. import kernels
 
-    ins = [a.contiguous() for a in _ladder_lanes(wsums, W, p)]
+    # the kernel reads the W rows and holds (0 : 1 : 0) past them
+    _check_ladder(wsums, W)
+    ins = [a.contiguous() for a in wsums]
     outs = [torch.empty((LADDER_LANES, N_LIMBS), dtype=torch.int32,
                         device=dev) for _ in range(3)]
     err = kernels.library().zk_ladder_tree(
-        *[kernels.rows(a, LADDER_LANES) for a in ins],
+        *[kernels.rows(a, W) for a in ins],
         *[kernels.rows(o, LADDER_LANES) for o in outs], c, W,
         1 if b3 else 0, int(b3), kernels.mod_ptr(p),
         kernels.stream_of(outs[0]))

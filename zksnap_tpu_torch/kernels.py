@@ -36,7 +36,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "zk_mont_mul": [_P, _P, _P, _LL, _LL, _LL, _P, _P],
     "zk_mont_addsub": [_P, _P, _P, _LL, _LL, _LL, _I, _P, _P],
-    "zk_point": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _P, _P],
+    "zk_point": [_I] + [_P] * 9 + [_LL, _I, _I, _P, _P],
     "zk_bucket_scan": [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P, _P],
     "zk_weighted_suffix": [_P] * 7 + [_LL, _LL] + [_I] * 5 + [_P, _P],
     "zk_ladder_tree": [_P] * 6 + [_I, _I, _I, _I, _P, _P],
@@ -118,6 +118,14 @@ def library() -> ctypes.CDLL:
         fn.argtypes = args
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The number of SMs of CUDA device `index`."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(err: int, what: str):
