@@ -41,7 +41,10 @@ Phases:
   3. K=7 parity with the frozen JAX vectors: the port's keygen gives the
      frozen vk digest, the port's verifier accepts the frozen proof, and
      a second keygen with ZKSNAP_TPU_FUSED_REDUCE=1 (every commit through
-     K5 and K6) gives the frozen digest again;
+     K5 and K6) gives the frozen digest again; a third with its fixed
+     columns lazy (LazyFixedCoeffs, the threshold forced) gives it too,
+     and that key, saved and loaded back, proves the frozen seeded JAX
+     proof's bytes;
   4. the first path: voter circuit at k=13 (check_plume=False), SRS made
      on the card in a fresh directory, keygen (vk digest against the
      frozen JAX digest), a cold and a warm proof, verification, and a
@@ -56,7 +59,10 @@ Phases:
      rejected, the peak device memory of keygen and of a proof; the
      launch counts of K1-K6 over it, each required > 0; one more warm
      proof under torch.profiler (K3's to K6's kernels in it apart); then
-     one 2^21 commit fused and unfused, the same point;
+     one 2^21 commit fused and unfused, the same point, and the same
+     commit through the fixed-base path enabled up to 2^21
+     (configure_fixed_base), the same point, both timed; every proof
+     keeps its polys in the int16 at-rest form;
   7. a ceremony-format SRS at k=15 written, read back (curve, pairing
      and Lagrange-sum checks) and compared; a corrupted file refused;
   8. the protocol of scripts/protocol_demo.py at its defaults: two rounds
@@ -64,10 +70,20 @@ Phases:
      proof folded by RecursionChain, one final pairing;
   9. the proving service (server.py) in this process: the voter at k=13
      proved, verified, a tampered proof and an unknown circuit refused;
- 10. the CLI in child processes: the state-transition circuit at k=15
+ 10. Poseidon's batched path: hash_fixed_batched over 2^16 pairs against
+     hash_fixed_native on 64 sampled rows and the frozen vectors,
+     build_tree_device over 2^16 leaves against the native MerkleTree's
+     levels (computed in 8 worker processes);
+ 11. the wrapper circuit at scripts/prove_wrapper_tpu.py --toy's shape
+     through scripts/prove_wrapper_torch.py's main: K=7 children (their
+     vk digests the frozen JAX ones), the shape solve (the frozen JAX
+     shape), keygen at k=18, two rounds proved, each verified and a
+     flipped byte rejected, rows 12 and up equal to wrapper_native's;
+     the decide skipped as the JAX --toy path skips it;
+ 12. the CLI in child processes: the state-transition circuit at k=15
      through keygen, prove and verify, its vk digest the frozen JAX
      digest, a flipped byte making verify exit 1;
- 11. the card's name and power limit, and the kernels' line.
+ 13. the card's name and power limit, and the kernels' line.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after (the CLI's children excepted: their counts are theirs).
@@ -198,6 +214,25 @@ def vk_digest(vk) -> str:
         x, y = (0, 0) if pt.is_identity() else (pt.x, pt.y)
         h.update(name.encode() + x.to_bytes(32, "little")
                  + y.to_bytes(32, "little"))
+    return h.hexdigest()
+
+
+def layout_digest(layout) -> str:
+    """sha256 over a keygen layout's structure (either package's): shape,
+    column starts, cell map, selectors, constants, table, active rows,
+    permutation columns, sigma and deltas."""
+    h = hashlib.sha256()
+    h.update(repr((layout.k, layout.n, layout.usable, layout.n_advice,
+                   layout.n_lookup, layout.lookup_bits,
+                   [int(c) for c in layout.col_starts],
+                   [tuple(c) for c in layout.perm_columns],
+                   [int(d) for d in layout.deltas])).encode())
+    for arr in ([layout.cell_map] + list(layout.q_cols)
+                + [layout.const_col, layout.sigma]):
+        a = np.ascontiguousarray(np.asarray(arr))
+        h.update(str(a.dtype).encode() + str(a.shape).encode() + a.tobytes())
+    for col in (layout.table_col, layout.active_col):
+        h.update(np.asarray(col, dtype=np.int64).tobytes())
     return h.hexdigest()
 
 
@@ -1471,7 +1506,8 @@ def phase_plume(dev, srs_dir, times):
     log("voter k={k} PLUME: synthesis {synthesis_s:.3f} s, check {check_s:.3f}"
         " s, SRS {srs_s:.3f} s, keygen {keygen_s:.3f} s (peak {kp:.2f} GB), "
         "prove cold {prove_cold_s:.3f} s (peak {pp:.2f} GB), warm "
-        "{prove_warm_s:.3f} s, verify {verify_s:.3f} s".format(
+        "{prove_warm_s:.3f} s, verify {verify_s:.3f} s; polys at rest in "
+        "the int16 form".format(
             k=k, kp=times["keygen_peak_bytes"] / 1e9,
             pp=times["prove_peak_bytes"] / 1e9, **times))
     return srs, pk, inst
@@ -1527,6 +1563,219 @@ def profile_prove(pk, inst, times):
     log("  K3-K6 in it: " + "; ".join(
         f"{k.split('(')[0]} x{v[0]} {v[1]:.1f} ms"
         for k, v in times["k3_to_k6_device"].items()))
+
+
+def _subtree(leaves):
+    """The native MerkleTree's levels over `leaves` (a worker process's
+    share of phase_poseidon's tree)."""
+    from zksnap_tpu_torch.natives.merkle import MerkleTree
+
+    return MerkleTree(leaves).tree
+
+
+def native_tree_levels(leaves, parts: int) -> list:
+    """The native MerkleTree's levels over `leaves` (a power of two),
+    computed as `parts` subtrees in worker processes and a top tree over
+    their roots: the same node hashes in the same places."""
+    from concurrent.futures import ProcessPoolExecutor
+    import multiprocessing
+
+    from zksnap_tpu_torch.natives.merkle import MerkleTree
+
+    size = len(leaves) // parts
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(parts, mp_context=ctx) as ex:
+        subs = list(ex.map(_subtree, [leaves[i * size:(i + 1) * size]
+                                      for i in range(parts)]))
+    levels = [sum((t[j] for t in subs), []) for j in range(len(subs[0]))]
+    return levels[:-1] + MerkleTree(levels[-1]).tree
+
+
+def phase_poseidon(dev, times, n: int = 1 << 16):
+    """Poseidon's batched path on the card: hash_fixed_batched over n pairs
+    (the shape of scripts/bench_kernels.py:62) against hash_fixed_native
+    on a seeded sample of rows; the frozen permutation and sponge vectors
+    (tests/vectors/transcript_v1.json); build_tree_device over n leaves
+    against the native MerkleTree's levels and root."""
+    from zksnap_tpu_torch.fields.field import bn254_fr
+    from zksnap_tpu_torch.hash import (default_spec, hash_fixed_batched,
+                                       hash_fixed_native)
+    from zksnap_tpu_torch.natives.merkle import build_tree_device
+
+    F = bn254_fr()
+    rng = random.Random(20261018)
+    vals = [rng.randrange(F.p) for _ in range(2 * n)]
+    x = F.to_mont(vals, device=dev).reshape(n, 2, 16)
+    h, ms = timed(lambda: hash_fixed_batched(x))
+    times["hash_2^16_ms"] = ms
+    h = h.cpu()
+    rows = rng.sample(range(n), 64)
+    for i in rows:
+        require(F.from_mont(h[i]) == hash_fixed_native(vals[2 * i:2 * i + 2]),
+                ("hash_fixed_batched row", i))
+    with open(os.path.join(VECTORS, "transcript_v1.json")) as f:
+        v = json.load(f)
+    perm = v["poseidon_permute"]
+    st = F.to_mont([int(a) for a in perm["in"]], device=dev)
+    got = F.from_mont(default_spec().permute(st[None])[0])
+    require([str(a) for a in got] == perm["out"], "frozen permutation")
+    sp = v["poseidon_sponge"]
+    for upd, want in zip(sp["updates"], sp["squeezes"]):
+        xs = F.to_mont([int(u) for u in upd], device=dev)[None]
+        require(str(F.from_mont(hash_fixed_batched(xs)[0])) == want,
+                ("frozen sponge", upd))
+    log(f"Poseidon: hash_fixed_batched over {n} pairs {ms:.1f} ms; 64 "
+        "sampled rows equal hash_fixed_native; the frozen permutation and "
+        "sponge vectors hold")
+    leaves = vals[:n]
+    leaves_dev = F.to_mont(leaves, device=dev)
+    lv, ms = timed(lambda: build_tree_device(leaves_dev))
+    times["tree_2^16_ms"] = ms
+    t0 = time.time()
+    want = native_tree_levels(leaves, 8)
+    times["native_tree_s"] = time.time() - t0
+    got = [F.from_mont(t.reshape(-1, 16)) for t in lv]
+    got = [g if isinstance(g, list) else [g] for g in got]
+    require(got == want, "build_tree_device levels differ from the native "
+            "MerkleTree's")
+    log(f"Poseidon: build_tree_device over {n} leaves {ms:.1f} ms, "
+        f"{len(lv)} levels and the root equal the native MerkleTree's "
+        f"(native {times['native_tree_s']:.1f} s in 8 processes)")
+
+
+def fixed_base_commit_2p21(srs, times):
+    """One 2^21 commit through the fixed-base path, enabled up to 2^21
+    (configure_fixed_base), against the fused variable-base commit of the
+    same scalars: the same point; the table's build and both commits
+    timed, twice each; the JAX defaults restored after."""
+    from zksnap_tpu_torch.curves.jacobian import bn254_ops
+    from zksnap_tpu_torch.prover import poly_device
+    from zksnap_tpu_torch.prover.poly_device import (commit_evals,
+                                                     configure_fixed_base)
+
+    n = srs.n
+    gen = torch.Generator().manual_seed(20261018)
+    vals = torch.randint(0, 1 << 16, (n, 16), generator=gen,
+                         dtype=torch.int32)
+    vals[:, 15] %= 0x3000
+    vals = vals.to(srs.g1.x.device)
+    ops = bn254_ops()
+
+    def affine(c):
+        return ops.to_affine_host(type(c)(c.x[None], c.y[None], c.z[None]))[0]
+
+    with fused_reduce("1"):
+        fused = [timed(lambda: commit_evals(srs.g1_lagrange, vals))
+                 for _ in range(2)]
+    configure_fixed_base(enabled=True, max_n=n)
+    try:
+        _, build_ms = timed(lambda: poly_device._fb_table(srs.g1_lagrange, n))
+        fixed = [timed(lambda: commit_evals(srs.g1_lagrange, vals))
+                 for _ in range(2)]
+    finally:
+        configure_fixed_base(enabled=True, max_n=1 << 20, c=16)
+    require(affine(fixed[0][0]) == affine(fused[0][0]),
+            "fixed-base and fused 2^21 commits differ")
+    times["commit_2p21_fixed_base_ms"] = [t for _, t in fixed]
+    times["commit_2p21_fused_ms"] = [t for _, t in fused]
+    times["fixed_base_table_2p21_ms"] = build_ms
+    log(f"2^{srs.k} commit: fixed-base (table built in {build_ms:.1f} ms) "
+        f"{fixed[0][1]:.1f}, {fixed[1][1]:.1f} ms; fused variable-base "
+        f"{fused[0][1]:.1f}, {fused[1][1]:.1f} ms; the same point")
+
+
+def phase_lazy_k7(dev, srs_dir, times):
+    """The K=7 keygen with its fixed columns lazy (the threshold forced to
+    0): the frozen JAX vk digest; the key saved with save_pk and loaded
+    back proves, seeded as the frozen JAX proof, the same bytes, and the
+    proof verifies."""
+    from zksnap_tpu_torch.prover import plonk
+    from zksnap_tpu_torch.prover.serialize import load_pk, save_pk
+    from zksnap_tpu_torch.prover.srs import gen_srs
+
+    with open(os.path.join(VECTORS, "torch_port_v1.json")) as f:
+        v = json.load(f)["seeded_proof_k7"]
+    srs = gen_srs(7, cache_dir=srs_dir, device=dev)
+    saved = plonk.LAZY_FIXED_BYTES
+    plonk.LAZY_FIXED_BYTES = 0
+    try:
+        t0 = time.time()
+        pk = plonk.keygen(build_fixed_circuit(), 7, srs)
+        times["lazy_keygen_s"] = time.time() - t0
+    finally:
+        plonk.LAZY_FIXED_BYTES = saved
+    require(isinstance(pk.fixed_coeffs, plonk.LazyFixedCoeffs),
+            "the forced K=7 keygen is not lazy")
+    require(vk_digest(pk.vk) == v["vk_sha256"], "lazy K=7 vk digest")
+    path = os.path.join(srs_dir, "lazy_k7.pk")
+    save_pk(pk, path)
+    again = load_pk(path)
+    inst = [int(a) for a in v["instances"]]
+    t0 = time.time()
+    proof = plonk.prove(again, inst, random.Random(v["rng_seed"]))
+    times["lazy_prove_s"] = time.time() - t0
+    require(proof.hex() == v["proof_hex"],
+            "the reloaded lazy key's proof differs from the frozen JAX proof")
+    require(plonk.verify(again.vk, srs.g2, srs.tau_g2, inst, proof),
+            "the reloaded lazy key's proof does not verify")
+    log(f"K=7 lazy: keygen {times['lazy_keygen_s']:.3f} s, vk digest the "
+        "frozen JAX one; saved, loaded, proved "
+        f"({times['lazy_prove_s']:.3f} s): the frozen JAX proof's bytes, "
+        "verifies")
+
+
+def load_wrapper_script():
+    """scripts/prove_wrapper_torch.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "prove_wrapper_torch",
+        os.path.join(ROOT, "scripts", "prove_wrapper_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_wrapper_toy(work, times, rounds: int = 2):
+    """The wrapper circuit at scripts/prove_wrapper_tpu.py --toy's shape
+    through scripts/prove_wrapper_torch.py (main(["2", "18", "--toy"])): the children's
+    vk digests and the solved shape the frozen JAX ones; each round's
+    wrapper proof verifies with the port's host verifier, a flipped byte
+    fails, and its instance rows outside the accumulator limbs (12 and
+    up) equal wrapper_native's.  The decide is skipped, as the JAX --toy
+    path skips it: truncated MSMs are unsound by design."""
+    import dataclasses
+
+    from zksnap_tpu_torch.prover.plonk import verify
+
+    with open(os.path.join(VECTORS, "torch_port_v1.json")) as f:
+        v = json.load(f)["wrapper_toy"]
+    out = load_wrapper_script().main([str(rounds), str(v["k_wrap"]), "--toy",
+                              "--cache", os.path.join(work, "wrapper")])
+    cfg, srs = out["cfg"], out["srs"]
+    vvk, svk = out["child_vks"]
+    require((vk_digest(vvk), vk_digest(svk))
+            == (v["voter_vk_sha256"], v["state_vk_sha256"]),
+            "toy child vk digests")
+    require(dataclasses.asdict(cfg.shape) == v["shape"],
+            ("toy wrapper shape", cfg.shape, v["shape"]))
+    for r, (snark, native) in enumerate(zip(out["snarks"], out["natives"])):
+        inst, proof = snark.instances, snark.proof
+        require(verify(snark.vk, srs.g2, srs.tau_g2, inst, proof),
+                ("toy wrapper proof does not verify", r))
+        bad = bytearray(proof)
+        bad[len(bad) // 2] ^= 1
+        require(not verify(snark.vk, srs.g2, srs.tau_g2, inst, bytes(bad)),
+                ("tampered toy wrapper proof accepted", r))
+        require(inst[12:] == native[12:] and inst[-1] == r,
+                ("toy wrapper rows 12+ differ from wrapper_native's", r))
+    require(out["decide"] is None, "the toy path runs no decide")
+    times["stages"] = out["stages"]
+    times["commit_path"] = out["commit_path"]
+    log(f"wrapper toy: shape {cfg.shape} the frozen JAX one; {rounds} rounds "
+        "proved, each verifies and a flipped byte does not, rows 12+ equal "
+        "wrapper_native's; decide skipped (truncated MSMs are unsound by "
+        "design)")
 
 
 def phase_ceremony_srs(dev, work, times, k: int = 15):
@@ -1880,10 +2129,12 @@ def main():
     work = tempfile.mkdtemp(prefix="chip_smoke_srs_",
                             dir=os.path.join(ROOT, "build"))
     k13, k21, srs15, protocol, serving, cli_times = {}, {}, {}, {}, {}, {}
+    lazy, poseidon, wrap = {}, {}, {}
     path_launches = {}
     k1_k4 = ("K1", "K2", "K3", "K4")
     try:
         phase3(dev, work)
+        phase_lazy_k7(dev, work, lazy)
         pk, inst = path("voter k=13", lambda: phase4(dev, work, k13), k1_k4)
         profile_prove(pk, inst, k13)
         del pk
@@ -1894,11 +2145,18 @@ def main():
             profile_prove(pk, inst, k21)
         del pk
         fused_commit_parity(srs, k21)
+        fixed_base_commit_2p21(srs, k21)
         del srs
         path("ceremony SRS k=15",
              lambda: phase_ceremony_srs(dev, work, srs15), ("K1", "K2", "K3"))
         path("protocol k=13", lambda: phase_protocol(dev, protocol), k1_k4)
         path("server voter k=13", lambda: phase_server(dev, serving), k1_k4)
+        path("Poseidon 2^16", lambda: phase_poseidon(dev, poseidon),
+             ("K1", "K2"))
+        t0 = time.time()
+        path("wrapper toy", lambda: phase_wrapper_toy(work, wrap), k1_k4)
+        wrap["phase_s"] = time.time() - t0
+        log(f"wrapper toy phase: {wrap['phase_s']:.1f} s")
         # the CLI runs in child processes, whose counts this one cannot read
         phase_cli(work, cli_times)
     finally:
@@ -1953,6 +2211,8 @@ def main():
         json.dump({**line, "voter_k13": k13, "voter_plume_k21": k21,
                    "ceremony_srs_k15": srs15, "protocol_k13": protocol,
                    "server_k13": serving, "cli_state_k15": cli_times,
+                   "lazy_k7": lazy, "poseidon_2p16": poseidon,
+                   "wrapper_toy": wrap,
                    "path_launches": path_launches,
                    "launches_k7_k8": launches_k7_k8, "ptxas": ptxas,
                    "k4_k5_ptxas": scan_ptxas, "k4_k5_sass": scan_sass,

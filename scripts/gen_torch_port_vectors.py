@@ -44,12 +44,33 @@ PyTorch port (zksnap_tpu_torch) is held to without rerunning the JAX prover.
       little-endian bytes;
   (l) `ladder_small`: `ladder_tree_fused` (K6) alone at (c, W) = (16, 1)
       and (3, 2), a few doublings, on seeded window sums (x*l, y*l, l)
-      as canonical integers (an eager call takes about 25 s).
+      as canonical integers (an eager call takes about 25 s);
+  (m) `wrapper_toy`: the wrapper circuit's toy configuration of
+      scripts/prove_wrapper_tpu.py --toy (K=7 children of
+      tests/test_wrapper.py, truncated in-circuit MSMs) at k_wrap=18:
+      at the script's k_wrap=16 its first dummy synthesis (10,098,951
+      cells, 757,742 lookups) needs 12 lookup columns, over the logUp
+      budget of 6, and the solve stops (so does the slow
+      test_two_round_ivc_checker); at 17 it reaches 78 advice and 6
+      lookup columns.  Frozen: the
+      children's vks (whole, and their digests), their proofs for two
+      rounds seeded as in (a), the shape `solve_wrapper_shape` reaches
+      from that script's guess with the `layout_circuit` digest of its
+      last dummy synthesis, and each round's wrapper instances and
+      advice digest (round 1's previous snark a dummy proof over round
+      0's instances, as test_two_round_ivc_checker builds it); host
+      work but the K=7 keygens and proofs.  No wrapper keygen at k=18
+      is frozen: part (h), one JAX keygen at k=15, takes about 35
+      minutes of CPU, and this one is 8x its rows;
+  (n) `poseidon`: `hash_fixed_batched` on seeded inputs of widths 1 to 5
+      (three hashes each), `PoseidonSpec.permute` on two seeded states
+      and `build_tree_device` over 8 seeded leaves, as canonical integers
+      (each input shape costs a jit compile of the 65-round chain).
 
 Run on the CPU:  python scripts/gen_torch_port_vectors.py [part ...]
 with parts among k7, voter_k13, msm, reduce, ladder, plume, pallas_point,
-state_k15, state_k13, srs_file, exp_mul (all by default); the parts named
-replace their entries in the existing file.
+state_k15, state_k13, srs_file, exp_mul, wrapper_toy, poseidon (all by
+default); the parts named replace their entries in the existing file.
 """
 
 import hashlib
@@ -79,9 +100,13 @@ PLUME_K, PLUME_LOOKUP_BITS = 21, 14
 POINT_SEED, POINT_N = 27, 8
 STATE_K, STATE_SMALL_K, STATE_SEED = 15, 13, 20260817
 EXP_MUL_SEED, EXP_MUL_N = 28, 256
+WRAP_CHILD_SEED = 30
+WRAP_TOY_K = 18
+POSEIDON_SEED = 31
 PARTS = ("k7", "voter_k13", "msm", "reduce", "ladder", "plume",
          "pallas_point",
-         "state_k15", "state_k13", "srs_file", "exp_mul")
+         "state_k15", "state_k13", "srs_file", "exp_mul", "wrapper_toy",
+         "poseidon")
 
 
 def vk_digest(vk) -> str:
@@ -535,6 +560,160 @@ def part_exp_mul() -> dict:
         "seed": EXP_MUL_SEED, "n": EXP_MUL_N, "field": "bn254_fr",
         "a_small": pack_u32(a_s), "b_small": pack_u32(b_s),
         "a_wide": pack_u32(a_w), "b_wide": pack_u32(b_w), "out": out}}
+
+
+def vk_dict(vk) -> dict:
+    """A VerifyingKey as JSON: its fields, ints as strings, commitments
+    as [x, y] ("0", "0" for the identity)."""
+    out = {}
+    for name in ("k", "ext_log", "n_advice", "n_lookup", "lookup_bits",
+                 "n_perm", "n_z", "usable", "num_instance"):
+        out[name] = getattr(vk, name)
+    out["deltas"] = [str(d) for d in vk.deltas]
+    out["omega"] = str(vk.omega)
+    out["commitments"] = {
+        nm: (["0", "0"] if pt.is_identity() else [str(pt.x), str(pt.y)])
+        for nm, pt in sorted(vk.commitments.items())}
+    return out
+
+
+def layout_digest(layout) -> str:
+    """sha256 over a layout's structure (the digest chip_smoke.py's
+    `layout_digest` computes)."""
+    import chip_smoke
+
+    return chip_smoke.layout_digest(layout)
+
+
+def seeded_proof(pk, instances, seed: int) -> bytes:
+    from zksnap_tpu.prover.plonk import prove
+
+    saved = secrets.randbelow
+    secrets.randbelow = random.Random(seed).randrange
+    try:
+        return prove(pk, instances)
+    finally:
+        secrets.randbelow = saved
+
+
+def part_wrapper_toy() -> dict:
+    import numpy as np
+    from dataclasses import asdict
+
+    sys.path.insert(0, "tests")
+    from test_wrapper import _toy_state_ctx, _toy_voter_ctx
+
+    from zksnap_tpu.circuits.wrapper import (
+        WrapperConfig,
+        WrapperRoundInput,
+        WrapperShape,
+        build_wrapper,
+        default_accumulator,
+        gen_dummy_proof,
+        initial_snark,
+        solve_wrapper_shape,
+        toy_linkage,
+    )
+    from zksnap_tpu.fields.field import bn254_fr
+    from zksnap_tpu.prover.keygen import layout_circuit
+    from zksnap_tpu.prover.plonk import keygen, rebind_witness
+    from zksnap_tpu.prover.recursion import Snark
+    from zksnap_tpu.prover.srs import gen_srs
+    from zksnap_tpu.trace import Context, check
+
+    p = bn254_fr().p
+    srs = gen_srs(7)
+    outs = [(11, 40), (40, 99)]      # test_two_round_ivc_checker's values
+    vpk = keygen(_toy_voter_ctx(outs[0][0]), 7, srs)
+    spk = keygen(_toy_state_ctx(*outs[0]), 7, srs)
+    children = []
+    for r, (vi, vo) in enumerate(outs):
+        vp = seeded_proof(rebind_witness(vpk, _toy_voter_ctx(vi)), [vi % p],
+                          WRAP_CHILD_SEED + 2 * r)
+        sp = seeded_proof(rebind_witness(spk, _toy_state_ctx(vi, vo)),
+                          [vi % p, vo % p], WRAP_CHILD_SEED + 2 * r + 1)
+        children.append((Snark(vpk.vk, [vi % p], vp),
+                         Snark(spk.vk, [vi % p, vo % p], sp)))
+    guess = WrapperShape(n_advice=40, n_lookup=5, n_z=24, n_perm=47,
+                         ext_log=3)
+    cfg = WrapperConfig(
+        k=WRAP_TOY_K, lookup_bits=14, voter_vk=vpk.vk, state_vk=spk.vk,
+        shape=guess, default_acc=default_accumulator(srs),
+        linkage=toy_linkage, n_payload=1, msm_window=2,
+        msm_unsound_truncate=8)
+    t0 = time.time()
+    cfg, ctx = solve_wrapper_shape(cfg, verbose=True)
+    solve_s = time.time() - t0
+    lay = layout_circuit(ctx, cfg.k)
+    comms = cfg.self_vk(None).commitments
+    rounds = []
+    prev = initial_snark(cfg, comms)
+    for r, (voter, state) in enumerate(children):
+        win = WrapperRoundInput(round=r, voter=voter, state=state,
+                                prev=prev, self_commitments=comms)
+        t0 = time.time()
+        c = Context(lookup_bits=cfg.lookup_bits)
+        inst = [x.value for x in build_wrapper(c, cfg, win)]
+        trace_s = time.time() - t0
+        check(c, inst)
+        rounds.append({
+            "instances": [str(v) for v in inst],
+            "cells": len(c.advice), "lookups": len(c.lookups),
+            "advice_sha256": hashlib.sha256(np.ascontiguousarray(
+                c.advice.limbs()).tobytes()).hexdigest(),
+            "trace_s": round(trace_s, 1)})
+        prev = Snark(cfg.self_vk(comms), inst,
+                     gen_dummy_proof(cfg.self_vk(comms), seed=11))
+    return {"wrapper_toy": {
+        "k_child": 7, "k_wrap": WRAP_TOY_K, "lookup_bits": 14,
+        "msm_window": 2,
+        "msm_unsound_truncate": 8, "outs": outs,
+        "guess": asdict(guess), "shape": asdict(cfg.shape),
+        "solve_s": round(solve_s, 1),
+        "dummy_cells": len(ctx.advice), "dummy_lookups": len(ctx.lookups),
+        "layout_sha256": layout_digest(lay),
+        "voter_vk": vk_dict(vpk.vk), "state_vk": vk_dict(spk.vk),
+        "voter_vk_sha256": vk_digest(vpk.vk),
+        "state_vk_sha256": vk_digest(spk.vk),
+        "child_proofs": [[v.proof.hex(), s_.proof.hex()]
+                         for v, s_ in children],
+        "child_seed": WRAP_CHILD_SEED, "rounds": rounds}}
+
+
+
+def poseidon_inputs(seed: int, p: int) -> dict:
+    """Widths 1..5 (three hashes each), two permutation states and 8
+    leaves, from the seed; the port's tests make the same ones."""
+    rng = random.Random(seed)
+    return {
+        "widths": {str(n): [[rng.randrange(p) for _ in range(n)]
+                            for _ in range(3)] for n in range(1, 6)},
+        "states": [[rng.randrange(p) for _ in range(3)] for _ in range(2)],
+        "leaves": [rng.randrange(p) for _ in range(8)]}
+
+
+def part_poseidon() -> dict:
+    from zksnap_tpu.fields.field import bn254_fr
+    from zksnap_tpu.hash import default_spec, hash_fixed_batched
+    from zksnap_tpu.natives.merkle import build_tree_device
+
+    F = bn254_fr()
+    inp = poseidon_inputs(POSEIDON_SEED, F.p)
+
+    def strs(xs):
+        return [str(v) for v in xs]
+
+    hashes = {}
+    for n, rows in inp["widths"].items():
+        x = F.to_mont([v for r in rows for v in r]).reshape(3, int(n), 16)
+        hashes[n] = strs(F.from_mont(hash_fixed_batched(x)))
+    st = F.to_mont([v for r in inp["states"] for v in r]).reshape(2, 3, 16)
+    perm = F.from_mont(default_spec().permute(st).reshape(6, 16))
+    levels = build_tree_device(F.to_mont(inp["leaves"]))
+    tree = [strs(F.from_mont(lv.reshape(-1, 16))) for lv in levels]
+    return {"poseidon": {"seed": POSEIDON_SEED, "hashes": hashes,
+                         "permute": [strs(perm[:3]), strs(perm[3:])],
+                         "tree": tree}}
 
 
 if __name__ == "__main__":

@@ -2,8 +2,9 @@
 
 Each module of zksnap_tpu_torch whose first line reads "# Copy of
 zksnap_tpu/<path>" holds the JAX module's functions and classes
-unchanged (`ast.dump` equal, import lines aside); a "(host parts only)"
-copy leaves out exactly the device parts named below.  The host verifier
+unchanged (`ast.dump` equal, import lines aside); a copy marked "(its
+device path the port's own)" keeps its source's host parts and writes
+the device parts named below itself.  The host verifier
 at the end of the port's prover/plonk.py is compared the same way, but
 for its instance commitment (held to the JAX one by value in
 test_torch_prover.py).  In a
@@ -23,16 +24,15 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "zksnap_tpu_torch")
 
-# what each "(host parts only)" copy leaves out: the device paths, queued
-# for a later port
-DEVICE_ONLY = {
-    "hash/poseidon.py": {"_hash_fixed_jit", "hash_fixed_batched",
-                         "_hash_fixed_impl", "_absorb",
+# a copy marked "(its device path the port's own)" keeps its source's
+# host parts verbatim; these definitions are the port's own (compared by
+# value in test_torch_poseidon.py) and these are left out
+PORT_OWN = {
+    "hash/poseidon.py": {"hash_fixed_batched", "_hash_fixed_impl", "_absorb",
                          "PoseidonSpec.rc_mont", "PoseidonSpec.mds_mont",
                          "PoseidonSpec.permute"},
-    "natives/merkle.py": {"build_tree_device"},
-    "hash/__init__.py": set(),
 }
+DROPPED = {"hash/poseidon.py": {"_hash_fixed_jit"}}
 # the host verifier copied into the port's prover/plonk.py, with the
 # helpers it shares with the prover.  `_instance_commitment` is left out:
 # the port's takes its Lagrange points from `srs.lagrange_prefix` (no
@@ -55,7 +55,7 @@ def _copies():
                 src = first.split()[3].rstrip(":")
                 out.append((os.path.relpath(path, PORT),
                             src[len("zksnap_tpu/"):],
-                            "(host parts only)" in first))
+                            "(its device path the port's own)" in first))
     return sorted(out)
 
 
@@ -111,7 +111,10 @@ def test_copies_found():
                  "prover/transcript.py", "prover/pairing.py",
                  "curves/native.py", "hash/grain.py", "natives/inputs.py",
                  "prover/accumulator.py", "prover/recursion.py",
-                 *DEVICE_ONLY):
+                 "natives/merkle.py", "hash/__init__.py",
+                 "circuits/wrapper.py", "prover/verifier_gadget.py",
+                 "gadgets/ecc_msm.py", "gadgets/transcript_gadget.py",
+                 "parallel/pipeline.py", *PORT_OWN):
         assert must in got, must
 
 
@@ -121,20 +124,22 @@ def test_copy_is_verbatim(copy, src, partial):
     assert copy == src, "a copy mirrors its source's module path"
     mine = _names(_parse(os.path.join(PORT, copy)))
     ref = _names(_parse(os.path.join(ROOT, "zksnap_tpu", src)))
+    own = PORT_OWN.get(copy, set()) if partial else set()
     dropped = set(ref) - set(mine)
     extra = set(mine) - set(ref)
     assert not extra, f"{copy} defines what its source does not: {extra}"
-    assert dropped == (DEVICE_ONLY[copy] if partial else set()), dropped
+    assert dropped == DROPPED.get(copy, set()), dropped
+    assert own <= set(mine), own - set(mine)
     for name, node in mine.items():
-        if "." in name:
+        if "." in name or name in own:
             continue
         if name == "__all__":
             assert set(ast.literal_eval(node.value)) <= set(
                 ast.literal_eval(ref[name].value))
         elif isinstance(node, ast.ClassDef):
-            gone = {d.split(".", 1)[1] for d in dropped
+            gone = {d.split(".", 1)[1] for d in dropped | own
                     if d.startswith(name + ".")}
-            assert ast.dump(node) == _without(ref[name], gone), name
+            assert _without(node, gone) == _without(ref[name], gone), name
         else:
             assert ast.dump(node) == ast.dump(ref[name]), name
 
@@ -170,7 +175,8 @@ import zksnap_tpu_torch
 for m in pkgutil.walk_packages(zksnap_tpu_torch.__path__, "zksnap_tpu_torch."):
     importlib.import_module(m.name)
 for m in ("cli", "server", "prover.serialize", "prover.accumulator",
-          "prover.recursion", "curves.pallas_point"):
+          "prover.recursion", "curves.pallas_point", "circuits.wrapper",
+          "prover.verifier_gadget", "parallel.pipeline"):
     assert "zksnap_tpu_torch." + m in sys.modules, m
 assert not any(k == "jax" or k.startswith(("jax.", "zksnap_tpu."))
                for k in sys.modules if sys.modules[k] is not None)

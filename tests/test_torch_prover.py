@@ -235,6 +235,7 @@ def test_instance_commitment_matches_jax(port, jax_verifier, monkeypatch,
     Domain.twiddles_inv, poly_device.pow_series_uncached,
     poly_device.pow_series, poly_device.to_device_poly,
     device_rounds._omega_pows_dev, load_srs, serialize.load_pk,
+    plonk.LazyFixedCoeffs.__init__,
     exp_vpu_rates.make_chain, exp_vpu_rates.make_dot,
     exp_mul_variants.make_variant, exp_mul_mxu.make_kernel],
     ids=lambda f: f.__qualname__)
@@ -247,32 +248,164 @@ def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
-def test_pk_from_numpy_round_trip(port):
-    """A key carried across as a JAX `ProvingKey` carries it: fixed
-    coefficients as the JAX package keeps them at rest (uint16 limbs),
-    its host `Layout` and its `VerifyingKey` with the JAX package's
-    points.  The result equals the key it came from."""
-    pk = port["pk"]
-    coeffs = {k: v.numpy().astype(np.uint16)
-              for k, v in pk.fixed_coeffs.items()}
+def _jax_key_parts(pk):
+    """A port key's layout and vk as the JAX package's host objects."""
     jlayout = JLayout(**{f.name: getattr(pk.layout, f.name)
                          for f in dataclasses.fields(JLayout)})
     fields = {f.name: getattr(pk.vk, f.name)
               for f in dataclasses.fields(jplonk.VerifyingKey)}
     fields["commitments"] = {k: _jax_affine(p)
                              for k, p in pk.vk.commitments.items()}
-    back = pk_from_numpy(coeffs, jlayout, jplonk.VerifyingKey(**fields),
-                         port["srs"])
+    return jlayout, jplonk.VerifyingKey(**fields)
+
+
+def test_pk_from_numpy_round_trip(port):
+    """A key carried across as a JAX `ProvingKey` carries it: fixed
+    coefficients as the JAX package keeps them at rest (uint16 limbs),
+    its host `Layout` and its `VerifyingKey` with the JAX package's
+    points.  The result equals the key it came from, its coefficients in
+    the port's at-rest form (int16 bit patterns)."""
+    pk = port["pk"]
+    coeffs = {k: poly_device._u32(v).numpy().astype(np.uint16)
+              for k, v in pk.fixed_coeffs.items()}
+    jlayout, jvk = _jax_key_parts(pk)
+    back = pk_from_numpy(coeffs, jlayout, jvk, port["srs"])
     assert back.vk == pk.vk
     assert chip_smoke.vk_digest(back.vk) == chip_smoke.vk_digest(pk.vk)
     assert sorted(back.fixed_coeffs) == sorted(pk.fixed_coeffs)
     for k, v in pk.fixed_coeffs.items():
-        assert back.fixed_coeffs[k].dtype == torch.int32
+        assert back.fixed_coeffs[k].dtype == torch.int16
         assert torch.equal(back.fixed_coeffs[k], v), k
     assert type(back.layout) is type(pk.layout)
     for f in dataclasses.fields(type(pk.layout)):
         assert getattr(back.layout, f.name) is getattr(pk.layout, f.name)
     assert back.srs is port["srs"]
+
+
+def test_pk_from_numpy_lazy(port):
+    """A JAX key whose fixed part is a `LazyFixedCoeffs` (built from the
+    same layout) carries across as the port's: every fixed column's
+    evaluations and coefficients equal the at-rest key's."""
+    from zksnap_tpu.prover.plonk import LazyFixedCoeffs as JLazy
+
+    pk = port["pk"]
+    jlayout, jvk = _jax_key_parts(pk)
+    back = pk_from_numpy(JLazy(jlayout, 7), jlayout, jvk, port["srs"])
+    lazy = back.fixed_coeffs
+    assert isinstance(lazy, plonk.LazyFixedCoeffs) and lazy.device == "cpu"
+    assert sorted(lazy.keys()) == sorted(pk.fixed_coeffs)
+    for nm, v in pk.fixed_coeffs.items():
+        assert torch.equal(lazy[nm], poly_device._u32(v)), nm
+        assert torch.equal(
+            lazy.evals(nm), poly_device.coeffs_to_evals(v, 7)), nm
+    assert back.vk == pk.vk
+
+
+def test_pack_poly_round_trip():
+    """The at-rest form keeps every limb's bits: int16 patterns that
+    widen back to the int32 limbs, the JAX `pack_poly`'s uint16 bits."""
+    import jax.numpy as jnp
+
+    from zksnap_tpu.prover.poly_device import _u32 as jax_u32
+    from zksnap_tpu.prover.poly_device import pack_poly as jax_pack
+
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randint(0, 1 << 16, (64, 16), generator=gen, dtype=torch.int32)
+    x[0] = 0xFFFF
+    x[1] = 0x8000
+    x[2] = 0x7FFF
+    packed = poly_device.pack_poly(x)
+    assert packed.dtype == torch.int16 and packed.shape == x.shape
+    assert poly_device.pack_poly(packed) is packed
+    assert torch.equal(poly_device._u32(packed), x)
+    assert poly_device._u32(x) is x
+    ref = np.asarray(jax_pack(jnp.asarray(x.numpy().astype(np.uint32))))
+    assert ref.dtype == np.uint16
+    assert np.array_equal(packed.numpy().view(np.uint16), ref)
+    assert np.array_equal(np.asarray(jax_u32(jnp.asarray(ref))),
+                          poly_device._u32(packed).numpy())
+
+
+@pytest.fixture(scope="module")
+def lazy_port(port, tmp_path_factory):
+    """The K=7 keygen with its fixed columns lazy (the threshold forced
+    to 0), and that key saved with save_pk and loaded back."""
+    saved = plonk.LAZY_FIXED_BYTES
+    plonk.LAZY_FIXED_BYTES = 0
+    try:
+        pk = plonk.keygen(chip_smoke.build_fixed_circuit(), 7, port["srs"],
+                          device="cpu")
+    finally:
+        plonk.LAZY_FIXED_BYTES = saved
+    path = str(tmp_path_factory.mktemp("lazy") / "k7.pk")
+    serialize.save_pk(pk, path)
+    return pk, serialize.load_pk(path, device="cpu")
+
+
+def test_lazy_keygen_frozen_digest(port, lazy_port):
+    """Lazy keygen gives the frozen vk digest, and its key survives
+    save_pk / load_pk: the same host sources, on the loader's device."""
+    pk, again = lazy_port
+    assert isinstance(pk.fixed_coeffs, plonk.LazyFixedCoeffs)
+    assert chip_smoke.vk_digest(pk.vk) == port["frozen"]["vk_sha256"]
+    assert pk.vk == port["pk"].vk
+    lazy, back = pk.fixed_coeffs, again.fixed_coeffs
+    assert isinstance(back, plonk.LazyFixedCoeffs) and back.device == "cpu"
+    assert back.keys() == lazy.keys()
+    assert sorted(lazy.keys()) == sorted(port["pk"].fixed_coeffs)
+    assert np.array_equal(back.sigma, lazy.sigma)
+    for a, b in zip(back.q_cols + [back.const_col],
+                    lazy.q_cols + [lazy.const_col]):
+        assert np.array_equal(a, b)
+    assert (back.table_col, back.active_col, back.deltas) == (
+        lazy.table_col, lazy.active_col, lazy.deltas)
+    assert again.vk == pk.vk
+
+
+@pytest.mark.slow
+def test_lazy_proof_matches_frozen_jax_proof(port, lazy_port):
+    """A seeded proof from the reloaded lazy key is the frozen JAX proof,
+    byte for byte, and verifies (about a minute on one CPU thread)."""
+    _, again = lazy_port
+    v = port["frozen"]
+    proof = plonk.prove(again, port["inst"], random.Random(v["rng_seed"]))
+    assert proof.hex() == v["proof_hex"]
+    srs = port["srs"]
+    assert plonk.verify(again.vk, srs.g2, srs.tau_g2, port["inst"], proof)
+
+
+@pytest.mark.parametrize("n", [
+    256, pytest.param(4096, marks=pytest.mark.slow)])
+def test_fixed_base_switch(n, monkeypatch):
+    """configure_fixed_base on and off gives the same commit
+    (tests/test_curves_msm.py:95-123 for the JAX package): at n = 4096,
+    the policy's lower edge (about 100 s on one CPU thread, slow), and at n = 256 with
+    that edge moved down."""
+    from zksnap_tpu_torch.curves.jacobian import bn254_ops
+    from zksnap_tpu_torch.curves.native import AffinePoint, BN254_G1
+    from zksnap_tpu_torch.fields.common import ints_to_limbs
+
+    rng = random.Random(n)
+    ops = bn254_ops()
+    g = AffinePoint.generator(BN254_G1)
+    pts = ops.from_affine_host(
+        [rng.randrange(1, BN254_G1.n) * g for _ in range(64)] * (n // 64),
+        device="cpu")
+    scalars = [rng.randrange(BN254_G1.n) for _ in range(n)]
+    scalars[0] = 0  # zero-digit bucket path
+    sc = torch.from_numpy(ints_to_limbs(scalars))
+    monkeypatch.setitem(poly_device._FB_STATE, "min_n", min(n, 1 << 12))
+    try:
+        poly_device.configure_fixed_base(enabled=True)
+        fb = ops.to_affine_host(poly_device.commit_evals(pts, sc))[0]
+        assert poly_device._FB_STATE["tables"].get(pts.x) is not None
+        poly_device.configure_fixed_base(enabled=False)
+        vb = ops.to_affine_host(poly_device.commit_evals(pts, sc))[0]
+    finally:
+        poly_device.configure_fixed_base(enabled=True)
+    assert fb == vb
+    assert (poly_device._FB_STATE["max_n"], poly_device._FB_STATE["c"]) == (
+        1 << 20, 16)
 
 
 @pytest.mark.slow

@@ -1,9 +1,10 @@
-# Copy of zksnap_tpu/hash/__init__.py (host parts only): jax-free; goes once zksnap_tpu imports jax lazily.
+# Copy of zksnap_tpu/hash/__init__.py: jax-free; goes once zksnap_tpu imports jax lazily.
 from .poseidon import (
     CAP_TAG,
     PoseidonNative,
     PoseidonSpec,
     default_spec,
+    hash_fixed_batched,
     hash_fixed_native,
 )
 
@@ -12,5 +13,6 @@ __all__ = [
     "PoseidonNative",
     "PoseidonSpec",
     "default_spec",
+    "hash_fixed_batched",
     "hash_fixed_native",
 ]

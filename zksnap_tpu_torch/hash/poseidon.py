@@ -1,4 +1,4 @@
-# Copy of zksnap_tpu/hash/poseidon.py (host parts only): jax-free; goes once zksnap_tpu imports jax lazily.
+# Copy of zksnap_tpu/hash/poseidon.py (its device path the port's own): jax-free; goes once zksnap_tpu imports jax lazily.
 """Poseidon hash: host-side sponge oracle + batched TPU permutation.
 
 Mirrors the pse-poseidon sponge used natively throughout the reference
@@ -23,7 +23,10 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
+import torch
 
+from ..fields.common import int_to_limbs
 from ..fields.field import PrimeField, bn254_fr
 from .grain import generate_poseidon_params
 
@@ -77,6 +80,65 @@ class PoseidonSpec:
             s = [(v + rc[r][i]) % p for i, v in enumerate(s)]
             s = apply_mds([sbox(v) for v in s])
             r += 1
+        return s
+
+    # ---- device-side (batched Montgomery limb tensors) -------------------
+
+    @functools.cached_property
+    def rc_mont(self):
+        """[r_f+r_p, t, 16] int32 round constants, Montgomery form (numpy;
+        `permute` copies them to the state's device)."""
+        return np.stack([
+            np.stack([int_to_limbs(c * self.F.R % self.F.p) for c in row])
+            for row in self.rc
+        ])
+
+    @functools.cached_property
+    def mds_mont(self):
+        return np.stack([
+            np.stack([int_to_limbs(c * self.F.R % self.F.p) for c in row])
+            for row in self.mds
+        ])
+
+    def permute(self, state):
+        """Batched permutation: state [..., t, 16] Montgomery -> same shape,
+        on the state's device.  The rounds run one after another, each as
+        a few batched field operations (kernels K1 and K2 on the card)
+        over the whole batch."""
+        F = self.F
+        t, half_f = self.t, self.r_f // 2
+        rc = torch.from_numpy(self.rc_mont).to(state.device)
+        mds = torch.from_numpy(self.mds_mont).to(state.device)
+
+        def sbox(x):
+            x2 = F.square(x)
+            return F.mul(F.square(x2), x)
+
+        def apply_mds(s):
+            # s: [..., t, 16]; out[i] = sum_j mds[i][j]*s[j]
+            prods = F.mul(mds, s[..., None, :, :])  # [..., t, t, 16]
+            acc = prods[..., 0, :]
+            for j in range(1, t):
+                acc = F.add(acc, prods[..., j, :])
+            return acc
+
+        def full_round(s, rc_row):
+            s = F.add(s, rc_row)
+            return apply_mds(sbox(s))
+
+        def partial_round(s, rc_row):
+            s = F.add(s, rc_row)
+            s0 = sbox(s[..., 0:1, :])
+            s = torch.cat([s0, s[..., 1:, :]], dim=-2)
+            return apply_mds(s)
+
+        s = state
+        for r in range(half_f):
+            s = full_round(s, rc[r])
+        for r in range(half_f, half_f + self.r_p):
+            s = partial_round(s, rc[r])
+        for r in range(half_f + self.r_p, self.r_f + self.r_p):
+            s = full_round(s, rc[r])
         return s
 
 
@@ -135,3 +197,46 @@ def hash_fixed_native(inputs, spec: PoseidonSpec | None = None) -> int:
     h = PoseidonNative(spec)
     h.update(list(inputs))
     return h.squeeze()
+
+
+def hash_fixed_batched(inputs, spec: PoseidonSpec | None = None):
+    """Batched fixed-length hash on the device of `inputs`.
+
+    inputs: [..., n, 16] Montgomery limb tensor (n elements per hash).
+    Returns [..., 16].  Same absorb/pad schedule as the native sponge.
+    """
+    spec = spec or default_spec()
+    return _hash_fixed_impl(inputs, spec)
+
+
+def _hash_fixed_impl(inputs, spec: PoseidonSpec):
+    F = spec.F
+    dev = inputs.device
+    n = inputs.shape[-2]
+    batch = tuple(inputs.shape[:-2])
+    state = torch.stack([
+        F.const_t(CAP_TAG, dev), F.const_t(0, dev), F.const_t(0, dev)
+    ]).expand(batch + (spec.t, inputs.shape[-1]))
+    rate = spec.rate
+    pos = 0
+    while n - pos >= rate:
+        chunk = inputs[..., pos : pos + rate, :]
+        state = _absorb(F, state, chunk, rate)
+        state = spec.permute(state)
+        pos += rate
+    # trailing chunk + 1-padding
+    tail = [inputs[..., i, :] for i in range(pos, n)]
+    tail.append(F.one_t(dev).expand(batch + (inputs.shape[-1],)))
+    tail_arr = torch.stack(tail, dim=-2)
+    state = _absorb(F, state, tail_arr, len(tail))
+    state = spec.permute(state)
+    return state[..., 1, :]
+
+
+def _absorb(F, state, chunk, width):
+    parts = [state[..., 0, :]]
+    for i in range(width):
+        parts.append(F.add(state[..., i + 1, :], chunk[..., i, :]))
+    for i in range(width + 1, state.shape[-2]):
+        parts.append(state[..., i, :])
+    return torch.stack(parts, dim=-2)

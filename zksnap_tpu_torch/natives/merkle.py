@@ -1,4 +1,4 @@
-# Copy of zksnap_tpu/natives/merkle.py (host parts only): jax-free; goes once zksnap_tpu imports jax lazily.
+# Copy of zksnap_tpu/natives/merkle.py: jax-free; goes once zksnap_tpu imports jax lazily.
 """Native Poseidon Merkle trees (host oracle + batched device builder).
 
 Mirrors voter/src/merkletree/native.rs (`MerkleTree::{new,get_root,get_proof,
@@ -12,7 +12,7 @@ hash per level (the whole level is a single vmapped permutation chain).
 from __future__ import annotations
 
 
-from ..hash.poseidon import PoseidonNative, PoseidonSpec, default_spec
+from ..hash.poseidon import PoseidonNative, PoseidonSpec, default_spec, hash_fixed_batched
 
 
 class MerkleTree:
@@ -64,6 +64,25 @@ class MerkleTree:
     def get_leaf_proof(self, leaf: int) -> tuple[list[int], list[int]]:
         idx = self.tree[0].index(leaf)
         return self.get_proof(idx)
+
+
+def build_tree_device(leaves, spec: PoseidonSpec | None = None):
+    """Batched device tree build.
+
+    leaves: [n, 16] Montgomery limb tensor, n a power of two.
+    Returns list of levels [n,16], [n/2,16], ..., [1,16] (device tensors).
+    Each level is ONE batched Poseidon call (n/2 sponges in parallel).
+    """
+    spec = spec or default_spec()
+    n = leaves.shape[0]
+    assert n & (n - 1) == 0, "power-of-two leaves"
+    levels = [leaves]
+    cur = leaves
+    while cur.shape[0] > 1:
+        pairs = cur.reshape(cur.shape[0] // 2, 2, cur.shape[-1])
+        cur = hash_fixed_batched(pairs, spec)
+        levels.append(cur)
+    return levels
 
 
 # --- Indexed Merkle tree (nullifier set) -----------------------------------

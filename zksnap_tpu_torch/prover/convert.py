@@ -2,7 +2,10 @@
 arrays, a proving key from a JAX `ProvingKey`'s fixed coefficients.
 
 Both packages keep the same integer limb values (uint32 there, int32
-here), so conversion is `np.asarray(x).astype(np.int32)`.
+here), so conversion is `np.asarray(x).astype(np.int32)`; a key's fixed
+coefficients at rest (uint16 there, int16 bit patterns here) go through
+`pack_poly`, and a JAX `LazyFixedCoeffs` becomes the port's, built from
+the same host sources.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import torch
 from ..curves.native import BN254_G1, AffinePoint
 from . import pairing as pr
 from .keygen import Layout
-from .plonk import ProvingKey, VerifyingKey
+from .plonk import LazyFixedCoeffs, ProvingKey, VerifyingKey
+from .poly_device import pack_poly
 from .srs import SRS, srs_from_arrays
 
 
@@ -37,14 +41,20 @@ def _affine(pt) -> AffinePoint:
     return AffinePoint(BN254_G1, int(pt.x), int(pt.y))
 
 
-def pk_from_numpy(fixed_coeffs: dict, layout, vk, srs: SRS) -> ProvingKey:
+def pk_from_numpy(fixed_coeffs, layout, vk, srs: SRS) -> ProvingKey:
     """A port ProvingKey from a JAX key's parts: `fixed_coeffs` maps each
     fixed column name to its [n, 16] Montgomery coefficients as numpy
-    (any unsigned width), `layout` and `vk` are the JAX host objects.
-    Tensors land on the device of `srs`."""
+    (any unsigned width; uint16 is the JAX at-rest form), or is the JAX
+    key's `LazyFixedCoeffs`; `layout` and `vk` are the JAX host objects.
+    Tensors land on the device of `srs`, in the port's at-rest form."""
     dev = srs.g1.x.device
-    coeffs = {name: torch.from_numpy(np.asarray(v).astype(np.int32)).to(dev)
-              for name, v in fixed_coeffs.items()}
+    if isinstance(fixed_coeffs, dict):
+        coeffs = {name: pack_poly(torch.from_numpy(
+            np.asarray(v).astype(np.int32)).to(dev))
+            for name, v in fixed_coeffs.items()}
+    else:
+        # the JAX provider holds the attributes a Layout gives the port's
+        coeffs = LazyFixedCoeffs(fixed_coeffs, fixed_coeffs.k, dev)
     lay = Layout(**{f.name: getattr(layout, f.name)
                     for f in dataclasses.fields(Layout)})
     fields = {f.name: getattr(vk, f.name)

@@ -47,6 +47,7 @@ from .poly_device import (
     evals_to_coeffs,
     mont_to_canonical,
     opening_witness_evals,
+    pack_poly,
     pow_series,
     pow_series_uncached,
     rlc_list,
@@ -81,21 +82,129 @@ class ProvingKey:
     vk: VerifyingKey
     layout: Layout
     srs: SRS
-    fixed_coeffs: dict  # name -> [n,16] Montgomery COEFFICIENTS (device)
+    fixed_coeffs: dict  # name -> [n,16] Montgomery COEFFICIENTS (device,
+    # pack_poly's at-rest form), or a LazyFixedCoeffs that rebuilds each
+    # at its point of use
+
+
+def _power_tables(k: int, deltas, device):
+    """omega^i [n,16] and delta^j [n_perm,16] Montgomery tables."""
+    from ..poly.domain import domain
+
+    omega_pows = pow_series(domain(k).omega, 1 << k, device)
+    delta_mont = torch.from_numpy(ints_to_limbs(
+        [d * FR.R % P for d in deltas])).to(device)
+    return omega_pows, delta_mont
+
+
+def _sigma_gather(delta_mont, omega_pows, sigma_j):
+    """sigma_j(w^i) = delta^{j'} * w^{i'}: a K1 product over the power
+    tables gathered at the permutation's targets [n, 2]."""
+    if not isinstance(sigma_j, torch.Tensor):
+        sigma_j = torch.from_numpy(np.asarray(sigma_j))
+    sig = sigma_j.to(omega_pows.device)
+    return FR.mul(delta_mont[sig[:, 0].long()], omega_pows[sig[:, 1].long()])
 
 
 def _sigma_values_dev(layout: Layout, device):
-    """Yields sigma columns [n,16] Montgomery one at a time: a gather of
-    delta^{j'} * omega^{i'} from two power tables."""
-    from ..poly.domain import domain
-
-    omega_pows = pow_series(domain(layout.k).omega, layout.n, device)
-    delta_mont = torch.from_numpy(ints_to_limbs(
-        [d * FR.R % P for d in layout.deltas])).to(device)
+    """Yields sigma columns [n,16] Montgomery one at a time."""
+    omega_pows, delta_mont = _power_tables(layout.k, layout.deltas, device)
     for j in range(len(layout.perm_columns)):
-        sig_j = torch.from_numpy(np.asarray(layout.sigma[j],
-                                            dtype=np.int64)).to(device)
-        yield FR.mul(delta_mont[sig_j[:, 0]], omega_pows[sig_j[:, 1]])
+        yield _sigma_gather(delta_mont, omega_pows, layout.sigma[j])
+
+
+class LazyFixedCoeffs:
+    """Dict-like provider computing fixed-column COEFFICIENT tensors on
+    demand instead of keeping them resident (the JAX package's, for keys
+    above LAZY_FIXED_BYTES).  Its sources are small host arrays: q an
+    (n,) selector bitmap per advice column, sigma an [n_perm, n, 2]
+    permutation array (gathered against cached power tables), const,
+    table and active host columns; each poly is rebuilt in one or two
+    NTTs on `device` where it is used.  `evals(name)` serves evaluation
+    form directly."""
+
+    def __init__(self, layout: Layout, k: int, device="cuda"):
+        self.k = k
+        self.n = layout.n
+        self.q_cols = [np.asarray(q) for q in layout.q_cols]
+        self.const_col = np.asarray(layout.const_col)
+        self.table_col = list(layout.table_col)
+        self.active_col = list(layout.active_col)
+        self.sigma = np.asarray(layout.sigma)      # host [n_perm, n, 2]
+        self.deltas = list(layout.deltas)
+        self.device = str(torch.device(device))
+        self._sigma_dev = None     # sigma on `device`, made on first use
+        self._names = ([f"q_{i}" for i in range(len(self.q_cols))]
+                       + ["const", "table", "active"]
+                       + [f"sigma_{j}" for j in range(len(self.deltas))])
+
+    def keys(self):
+        return list(self._names)
+
+    def __iter__(self):
+        return iter(self._names)
+
+    def __contains__(self, nm):
+        return nm in self._names
+
+    def evals(self, nm: str):
+        """Evaluation-form [n,16] Montgomery of a fixed column."""
+        dev = self.device
+        if nm.startswith("sigma_"):
+            if self._sigma_dev is None or str(self._sigma_dev.device) != dev:
+                self._sigma_dev = torch.from_numpy(self.sigma).to(dev)
+            omega_pows, delta_mont = _power_tables(self.k, self.deltas, dev)
+            return _sigma_gather(delta_mont, omega_pows,
+                                 self._sigma_dev[int(nm[6:])])
+        if nm.startswith("q_"):
+            return to_device_poly(self.q_cols[int(nm[2:])], dev)
+        if nm in ("const", "table", "active"):
+            return to_device_poly(getattr(self, f"{nm}_col"), dev)
+        raise KeyError(nm)
+
+    def __getitem__(self, nm: str):
+        return evals_to_coeffs(self.evals(nm), self.k)
+
+    def __getstate__(self):
+        d = dict(self.__dict__)
+        d["_sigma_dev"] = None
+        return d
+
+
+def _fixed_evals(pk: ProvingKey, nm: str):
+    """Evaluation form of a fixed column (provider shortcut or NTT)."""
+    if isinstance(pk.fixed_coeffs, LazyFixedCoeffs):
+        return pk.fixed_coeffs.evals(nm)
+    return coeffs_to_evals(pk.fixed_coeffs[nm], pk.layout.k)
+
+
+class _ChainCoeffs:
+    """Two-level name->tensor lookup (witness dict over fixed provider);
+    writes go to the first map.  Keeps lazy fixed entries lazy."""
+
+    def __init__(self, first: dict, second):
+        self.first = first
+        self.second = second
+
+    def __getitem__(self, nm):
+        if nm in self.first:
+            return self.first[nm]
+        return self.second[nm]
+
+    def __setitem__(self, nm, v):
+        self.first[nm] = v
+
+    def __contains__(self, nm):
+        return nm in self.first or nm in self.second
+
+    def keys(self):
+        return list(self.first.keys()) + [k_ for k_ in self.second.keys()
+                                          if k_ not in self.first]
+
+
+# threshold above which keygen keeps fixed columns lazy: at-rest int16
+# coefficients for n_fixed polys cost n_fixed * n * 32 bytes on the device
+LAZY_FIXED_BYTES = 2 << 30
 
 
 def keygen(ctx: Context, k: int, srs: SRS | None = None,
@@ -122,16 +231,21 @@ def keygen(ctx: Context, k: int, srs: SRS | None = None,
     commitments = {}
     fixed_coeffs = {}
     ops = bn254_ops()
+    n_fixed = len(fixed_host) + n_perm
+    lazy = n_fixed * layout.n * 32 > LAZY_FIXED_BYTES
 
     def ingest(name, dev_evals):
         c = commit_evals(srs.g1_lagrange, mont_to_canonical(dev_evals))
         commitments[name] = ops.to_affine_host(c)[0]
-        fixed_coeffs[name] = evals_to_coeffs(dev_evals, k)
+        if not lazy:
+            fixed_coeffs[name] = pack_poly(evals_to_coeffs(dev_evals, k))
 
     for name, v in fixed_host.items():
         ingest(name, to_device_poly(v, dev))
     for j, s in enumerate(_sigma_values_dev(layout, dev)):
         ingest(f"sigma_{j}", s)
+    if lazy:
+        fixed_coeffs = LazyFixedCoeffs(layout, k, dev)
 
     vk = VerifyingKey(
         k=k, ext_log=ext_log, n_advice=layout.n_advice,
@@ -212,11 +326,13 @@ def _prove_impl(pk: ProvingKey, instances: list[int], rng) -> bytes:
         return ops.to_affine_host(
             commit_evals(pk.srs.g1_lagrange, mont_to_canonical(d)))[0]
 
+    # advice evals are transient: blind, upload, commit, iNTT to packed
+    # coefficients, free
     coeffs = {}
     for c in range(layout.n_advice):
         d = to_device_poly(_blind_tail(layout.advice_col(c)), dev)
         tr.write_point(commit(d))
-        coeffs[f"advice_{c}"] = evals_to_coeffs(d, k)
+        coeffs[f"advice_{c}"] = pack_poly(evals_to_coeffs(d, k))
         del d
 
     if layout.n_lookup:
@@ -250,8 +366,8 @@ def _prove_impl(pk: ProvingKey, instances: list[int], rng) -> bytes:
     # -- round 2: logUp helper h + chunked grand products --------------------
     from .device_rounds import compute_h_dev, compute_z_dev
 
-    table_ev = coeffs_to_evals(pk.fixed_coeffs["table"], k)
-    const_ev = coeffs_to_evals(pk.fixed_coeffs["const"], k)
+    table_ev = _fixed_evals(pk, "table")
+    const_ev = _fixed_evals(pk, "const")
     if layout.n_lookup:
         h_dev, h_closure = compute_h_dev(k, lookup_dev, table_ev, m_dev,
                                          beta_lk)
@@ -272,7 +388,7 @@ def _prove_impl(pk: ProvingKey, instances: list[int], rng) -> bytes:
 
     z_devs, z_closure = compute_z_dev(
         layout, col_loader,
-        lambda j: coeffs_to_evals(pk.fixed_coeffs[f"sigma_{j}"], k),
+        lambda j: _fixed_evals(pk, f"sigma_{j}"),
         beta, gamma)
     # blind Z: rows (usable, n) are unconstrained
     z_tail = n - usable - 1
@@ -288,20 +404,22 @@ def _prove_impl(pk: ProvingKey, instances: list[int], rng) -> bytes:
     tr.write_point(commit(h_dev))
     for c in range(len(z_devs)):
         tr.write_point(commit(z_devs[c]))
-        coeffs[f"z_{c}"] = evals_to_coeffs(z_devs[c], k)
+        coeffs[f"z_{c}"] = pack_poly(evals_to_coeffs(z_devs[c], k))
         z_devs[c] = None
     del z_devs, const_ev
 
     y = tr.challenge()
 
     for i, d in enumerate(lookup_dev):
-        coeffs[f"lookup_{i}"] = evals_to_coeffs(d, k)
+        coeffs[f"lookup_{i}"] = pack_poly(evals_to_coeffs(d, k))
     del lookup_dev
-    coeffs["m"] = evals_to_coeffs(m_dev, k)
-    coeffs["h"] = evals_to_coeffs(h_dev, k)
-    coeffs["instance"] = evals_to_coeffs(inst_dev, k)
+    coeffs["m"] = pack_poly(evals_to_coeffs(m_dev, k))
+    coeffs["h"] = pack_poly(evals_to_coeffs(h_dev, k))
+    coeffs["instance"] = pack_poly(evals_to_coeffs(inst_dev, k))
     del m_dev, h_dev, inst_dev
-    coeffs.update(pk.fixed_coeffs)
+    # fixed columns join through a chain view: a LazyFixedCoeffs provider
+    # rebuilds each at its point of use instead of holding it
+    coeffs = _ChainCoeffs(coeffs, pk.fixed_coeffs)
 
     # -- round 3: quotient (streamed per extension coset) ---------------------
     t_chunk_coeffs = _quotient(pk, coeffs, beta_lk, beta, gamma, y)
@@ -315,9 +433,9 @@ def _prove_impl(pk: ProvingKey, instances: list[int], rng) -> bytes:
     eval_points = _eval_points(x, omega, pk.vk.usable)
     queries = _query_plan(pk.vk, len(t_chunk_coeffs))
     xn = pow(x, n, P)
-    coeffs["t"] = rlc_list(
+    coeffs["t"] = pack_poly(rlc_list(
         t_chunk_coeffs, [pow(xn, i, P) for i in range(len(t_chunk_coeffs))],
-        k)
+        k))
     del t_chunk_coeffs
 
     stacked_names = sorted(coeffs.keys())

@@ -12,7 +12,14 @@
 
 Every tensor stays on the device of its inputs; `device` arguments name
 it where a function creates tensors from host data.  The JAX package's
-mesh-sharded paths and its uint16 at-rest packing are not ported yet.
+mesh-sharded paths are not ported yet.
+
+At rest (a proving key's fixed coefficients, a proof's witness
+coefficients) a poly is kept in `pack_poly`'s form: the 16 limbs, each
+below 2^16, as `torch.int16` bit patterns, half the bytes of the int32
+compute form.  Torch has little arithmetic for uint16, so int16 holds
+the bits and `_u32` widens them back (`& 0xFFFF` into int32) at each
+point of use: every function here that reads a poly accepts either form.
 """
 
 from __future__ import annotations
@@ -55,6 +62,24 @@ def pow_series(base_int: int, n: int, device="cuda"):
     return _pow_series_cached(base_int, n, str(torch.device(device)))
 
 
+# -- the at-rest form ---------------------------------------------------------
+
+def pack_poly(x):
+    """[n,16] int32 Montgomery -> the int16 at-rest form (lossless: every
+    limb is below 2^16 and keeps its bit pattern)."""
+    if x.dtype == torch.int16:
+        return x
+    return (x - ((x & 0x8000) << 1)).to(torch.int16)
+
+
+def _u32(x):
+    """Widen an at-rest (possibly int16) limb tensor to the int32 compute
+    form (the JAX package's uint32 widening)."""
+    if x.dtype == torch.int16:
+        return x.to(torch.int32) & 0xFFFF
+    return x
+
+
 def to_device_poly(values, device="cuda"):
     """Host evaluations -> Montgomery limb tensor [n, 16] on `device`.
 
@@ -81,19 +106,34 @@ def to_device_poly(values, device="cuda"):
 
 # Fixed-base commit tables: the SRS bases never change per k, so shifted
 # tables remove the doubling ladder and the per-window bucket sets.  Used
-# for commits of FB_MIN_N <= n <= FB_MAX_N points (the JAX package's
-# policy); a table lives as long as the point tensor it was built from.
-FB_MIN_N, FB_MAX_N, FB_C = 1 << 12, 1 << 20, 16
-_FB_TABLES = WeakIdKeyDictionary()
+# for commits of min_n <= n <= max_n points (the JAX package's defaults:
+# 2^12 to 2^20, c = 16; a 2^21 table takes 4.3 GB); a table lives as long
+# as the point tensor it was built from, or until the window width changes.
+_FB_STATE = {"enabled": True, "max_n": 1 << 20, "min_n": 1 << 12, "c": 16,
+             "tables": WeakIdKeyDictionary()}
+
+
+def configure_fixed_base(enabled: bool | None = None, max_n: int | None = None,
+                         c: int | None = None):
+    """Tune the fixed-base commit path (e.g. enable at 2^21 for the voter
+    prover, disable under tight device memory)."""
+    if enabled is not None:
+        _FB_STATE["enabled"] = enabled
+    if max_n is not None:
+        _FB_STATE["max_n"] = max_n
+    if c is not None:
+        _FB_STATE["c"] = c
+        _FB_STATE["tables"].clear()
 
 
 def _fb_table(points: JacPoint, n: int):
     from ..msm.fixed_base import build_table
 
-    per_n = _FB_TABLES.setdefault(points.x, {})
-    if n not in per_n:
-        per_n[n] = build_table(points, n, FB_C)
-    return per_n[n]
+    per_n = _FB_STATE["tables"].setdefault(points.x, {})
+    key = (n, _FB_STATE["c"])
+    if key not in per_n:
+        per_n[key] = build_table(points, n, _FB_STATE["c"])
+    return per_n[key]
 
 
 def commit_evals(srs_lagrange: JacPoint, values) -> JacPoint:
@@ -103,7 +143,8 @@ def commit_evals(srs_lagrange: JacPoint, values) -> JacPoint:
     projective coordinates; the result comes back as Jacobian
     (X*Z, Y*Z^2, Z)."""
     n = values.shape[0]
-    if FB_MIN_N <= n <= FB_MAX_N:
+    if (_FB_STATE["enabled"]
+            and _FB_STATE["min_n"] <= n <= _FB_STATE["max_n"]):
         from ..msm.fixed_base import commit_fixed
 
         return commit_fixed(_fb_table(srs_lagrange, n), values)
@@ -122,7 +163,7 @@ def commit_evals(srs_lagrange: JacPoint, values) -> JacPoint:
 
 def mont_to_canonical(values):
     """[n,16] Montgomery -> canonical (for MSM scalars)."""
-    return FR.mont_reduce_narrow(values)
+    return FR.mont_reduce_narrow(_u32(values))
 
 
 def commit_coeffs(srs_monomial: JacPoint, coeffs) -> JacPoint:
@@ -136,19 +177,19 @@ def commit_coeffs(srs_monomial: JacPoint, coeffs) -> JacPoint:
 def evals_to_coeffs(evals, k: int):
     """[n,16] evaluations on H (natural order) -> coefficient form."""
     dom = domain(k)
-    c = _ntt_impl(evals, dom.twiddles_inv(evals.device), k, FR)
+    c = _ntt_impl(_u32(evals), dom.twiddles_inv(evals.device), k, FR)
     return FR.mul(c, FR.const_t(dom.n_inv, evals.device)[None, :])
 
 
 def coeffs_to_evals(coeffs, k: int):
     """[n,16] coefficient form -> evaluations on H (natural order)."""
-    return _ntt_impl(coeffs, domain(k).twiddles(coeffs.device), k, FR)
+    return _ntt_impl(_u32(coeffs), domain(k).twiddles(coeffs.device), k, FR)
 
 
 def coset_evals(coeffs, s_pows, k: int):
     """Evaluate a coefficient-form poly on the coset {s * w^i}: scale
     coefficient j by s^j (s_pows, [n,16] Montgomery), then forward NTT."""
-    return coeffs_to_evals(FR.mul(coeffs, s_pows), k)
+    return coeffs_to_evals(FR.mul(_u32(coeffs), s_pows), k)
 
 
 # -- batched evaluation at a point ------------------------------------------
@@ -159,7 +200,7 @@ def eval_coeffs_list(polys: list, x_int: int, k: int) -> list[int]:
     n = 1 << k
     dev = polys[0].device
     pw = pow_series_uncached(x_int, n, dev)
-    acc = FR.mul(torch.stack(list(polys)), pw[None])
+    acc = FR.mul(torch.stack([_u32(p) for p in polys]), pw[None])
     m = n
     while m > 1:
         acc = FR.add(acc[:, : m // 2], acc[:, m // 2 : m])
@@ -188,7 +229,7 @@ def rlc_list(polys: list, coef_ints: list[int], k: int):
     dev = polys[0].device
     coefs = torch.from_numpy(ints_to_limbs(
         [c % FR.p * FR.R % FR.p for c in coef_ints])).to(dev)
-    acc = FR.mul(torch.stack(list(polys)), coefs[:, None, :])
+    acc = FR.mul(torch.stack([_u32(p) for p in polys]), coefs[:, None, :])
     m = len(polys)
     while m > 1:
         h = m // 2

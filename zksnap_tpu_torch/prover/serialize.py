@@ -12,9 +12,11 @@ files this program wrote.  Tensors are kept as numpy arrays at rest and
 `load_pk` puts them on its device.  The pickle holds the port's classes
 (its `VerifyingKey`, `Layout` and `AffinePoint`), so a key file written by
 the JAX package is not expected to load here, nor the other way round;
-`prover/convert.py` carries a JAX key across in memory.  The port keeps
-every fixed coefficient on the device (it has no `LazyFixedCoeffs` yet),
-so a file always holds them all.
+`prover/convert.py` carries a JAX key across in memory.  A key's fixed
+part is either its coefficients in the at-rest int16 form, held as numpy
+in the file, or a `LazyFixedCoeffs` (keys above `LAZY_FIXED_BYTES`),
+whose host sources pickle as they are and which `load_pk` points at its
+device (the JAX package's lazy file form, serialize.py:42-71).
 """
 
 from __future__ import annotations
@@ -43,8 +45,14 @@ def save_pk(pk, path: str, strip_witness: bool = False):
     strip_witness=True drops the layout's witness value buffer (keygen's
     synthesis values) from the file; the loaded pk must then be
     `rebind_witness`-ed before proving (wrapper.rs:945-947 pk reuse)."""
+    from .plonk import LazyFixedCoeffs
+
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    fixed_host = {k: v.cpu().numpy() for k, v in pk.fixed_coeffs.items()}
+    if isinstance(pk.fixed_coeffs, LazyFixedCoeffs):
+        fixed_host = pk.fixed_coeffs  # host-backed; pickles directly
+    else:
+        fixed_host = {k: v.cpu().numpy()
+                      for k, v in pk.fixed_coeffs.items()}
     layout = pk.layout
     if strip_witness:
         layout = copy.copy(layout)
@@ -57,7 +65,7 @@ def save_pk(pk, path: str, strip_witness: bool = False):
 def load_pk(path: str, device="cuda"):
     """A proving key from `save_pk`, its fixed coefficients and dev SRS on
     `device` (the card unless the caller names the CPU)."""
-    from .plonk import ProvingKey
+    from .plonk import LazyFixedCoeffs, ProvingKey
     from .srs import gen_srs
 
     with open(path, "rb") as f:
@@ -70,8 +78,12 @@ def load_pk(path: str, device="cuda"):
     if srs.g1.x.device.type != device.type:
         raise ValueError(f"the SRS for k={d['srs_k']} is held on "
                          f"{srs.g1.x.device}; load the key there")
-    fixed = {k: torch.from_numpy(v).to(srs.g1.x.device)
-             for k, v in d["fixed"].items()}
+    if isinstance(d["fixed"], LazyFixedCoeffs):
+        fixed = d["fixed"]
+        fixed.device = str(srs.g1.x.device)
+    else:
+        fixed = {k: torch.from_numpy(v).to(srs.g1.x.device)
+                 for k, v in d["fixed"].items()}
     return ProvingKey(vk=d["vk"], layout=d["layout"], srs=srs,
                       fixed_coeffs=fixed)
 
