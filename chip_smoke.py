@@ -45,6 +45,10 @@ Phases:
      columns lazy (LazyFixedCoeffs, the threshold forced) gives it too,
      and that key, saved and loaded back, proves the frozen seeded JAX
      proof's bytes;
+  3b. K=7 on a virtual mesh (parallel.make_mesh over the card named four
+     times; every commit and NTT sharded): keygen(..., mesh=) gives the
+     frozen vk digest, a seeded prove(..., mesh=) the frozen seeded JAX
+     proof's bytes;
   4. the first path: voter circuit at k=13 (check_plume=False), SRS made
      on the card in a fresh directory, keygen (vk digest against the
      frozen JAX digest), a cold and a warm proof, verification, and a
@@ -52,6 +56,9 @@ Phases:
      required > 0;
   5. one more warm proof under torch.profiler: the device's busy share
      and the kernels that hold it;
+  5b. warm_prove's effect on a first proof: two child processes at the
+     voter's k=13 on the library already built, one running warm_prove
+     (each task timed) before keygen and the first prove, one without;
   6. the second path, with ZKSNAP_TPU_FUSED_REDUCE=1: the voter circuit
      with PLUME on at k=21 (its stats and instances against the frozen
      JAX ones), SRS made on the card, keygen (vk shape against the frozen
@@ -63,6 +70,17 @@ Phases:
      commit through the fixed-base path enabled up to 2^21
      (configure_fixed_base), the same point, both timed; every proof
      keeps its polys in the int16 at-rest form;
+  6b. the same key on a virtual mesh of four (still fused): a first and a
+     warm sharded prove (seeded; time and peak), which verifies and
+     rejects a flipped byte, with K1-K6's launches counted and each
+     required > 0; one 2^21 commit sharded against one card (as points);
+     four_step_ntt at 2^21 and 2^23, both ways, against the single-device
+     NTT (bit for bit); the seeded sharded proof against a seeded
+     single-device proof (byte for byte).  With two or more cards, K1
+     and K3 on the last card alone, then the same checks over the first
+     2 or 4 cards and scaling_efficiency of the 2^21 commit and the 2^23
+     NTT over 1, 2, 4 cards; with one card it prints that they did not
+     run;
   7. a ceremony-format SRS at k=15 written, read back (curve, pairing
      and Lagrange-sum checks) and compared; a corrupted file refused;
   8. the protocol of scripts/protocol_demo.py at its defaults: two rounds
@@ -1684,6 +1702,340 @@ def fixed_base_commit_2p21(srs, times):
         f"{fused[0][1]:.1f}, {fused[1][1]:.1f} ms; the same point")
 
 
+# -- the mesh: a virtual mesh (one card named MESH_SHARDS times) and, where
+# the machine has them, distinct cards ---------------------------------------
+
+MESH_SHARDS = 4
+MESH_SEED = 20261019   # the rng of the seeded proofs compared across meshes
+NTT_CHECK_K = (21, 23)
+
+
+def synced(fn):
+    """(fn(), its wall seconds) with every CUDA device synchronised before
+    and after: the time of work that may span several cards."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    t0 = time.time()
+    out = fn()
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    return out, time.time() - t0
+
+
+def card_mesh(devices):
+    from zksnap_tpu_torch.parallel import make_mesh
+
+    return make_mesh((len(devices),), ("x",), devices)
+
+
+def random_canonical(n: int, seed: int, dev):
+    """n seeded rows of 16-bit limbs below Fr's modulus (canonical scalars,
+    or Montgomery representatives of field elements)."""
+    gen = torch.Generator().manual_seed(seed)
+    vals = torch.randint(0, 1 << 16, (n, 16), generator=gen,
+                         dtype=torch.int32)
+    vals[:, 15] %= 0x3000  # below the top limb of r
+    return vals.to(dev)
+
+
+def phase_mesh_k7(dev, srs_dir, times):
+    """K=7 on a virtual mesh of MESH_SHARDS x the card (n = 128 >= 4^2, so
+    every commit and NTT is sharded): keygen gives the frozen JAX vk
+    digest, and a proof seeded as the frozen JAX proof has its bytes."""
+    from zksnap_tpu_torch.prover.plonk import keygen, prove
+    from zksnap_tpu_torch.prover.srs import gen_srs
+
+    with open(os.path.join(VECTORS, "transcript_v1.json")) as f:
+        digest = json.load(f)["proof_k7"]["vk_sha256"]
+    with open(os.path.join(VECTORS, "torch_port_v1.json")) as f:
+        sp = json.load(f)["seeded_proof_k7"]
+    mesh = card_mesh([dev] * MESH_SHARDS)
+    srs = gen_srs(7, cache_dir=srs_dir, device=dev)
+    pk, times["keygen_s"] = synced(
+        lambda: keygen(build_fixed_circuit(), 7, srs, mesh=mesh))
+    require(vk_digest(pk.vk) == digest, ("K=7 on a virtual mesh",
+                                         vk_digest(pk.vk), digest))
+    proof, times["prove_s"] = synced(lambda: prove(
+        pk, [int(x) for x in sp["instances"]], random.Random(sp["rng_seed"]),
+        mesh=mesh))
+    require(proof.hex() == sp["proof_hex"],
+            "the seeded K=7 proof on a virtual mesh is not the frozen JAX one")
+    log(f"K=7 on a virtual mesh of {MESH_SHARDS} x {dev}: vk digest and the "
+        f"seeded proof's {len(proof)} bytes equal the frozen JAX ones "
+        f"(keygen {times['keygen_s']:.3f} s, prove {times['prove_s']:.3f} s)")
+
+
+def mesh_prove(pk, inst, mesh, times):
+    """On `mesh`: a first sharded prove, then a warm one seeded with
+    MESH_SEED, timed with each card's peak memory; it verifies and one
+    flipped byte is rejected.  Returns the seeded proof."""
+    from zksnap_tpu_torch.prover.plonk import prove, verify
+
+    srs = pk.srs
+    _, times["prove_first_s"] = synced(lambda: prove(pk, inst, mesh=mesh))
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(i)
+    proof, times["prove_warm_s"] = synced(
+        lambda: prove(pk, inst, random.Random(MESH_SEED), mesh=mesh))
+    times["prove_peak_bytes"] = [torch.cuda.max_memory_allocated(i)
+                                 for i in range(torch.cuda.device_count())]
+    require(verify(pk.vk, srs.g2, srs.tau_g2, inst, proof),
+            "the sharded proof does not verify")
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    require(not verify(pk.vk, srs.g2, srs.tau_g2, inst, bytes(bad)),
+            "a tampered sharded proof is accepted")
+    log(f"k={pk.vk.k} on {mesh}: first sharded prove "
+        f"{times['prove_first_s']:.3f} s, warm {times['prove_warm_s']:.3f} s "
+        f"(peak {max(times['prove_peak_bytes']) / 1e9:.2f} GB); the proof "
+        "verifies, one flipped byte is rejected")
+    return proof
+
+
+def mesh_parity(srs, pk, inst, mesh, proof, times):
+    """On `mesh` against one card: a 2^k commit (as points), the
+    four-step NTT at 2^21 and 2^23 both ways against the single-device
+    NTT (bit for bit), and `proof` (seeded with MESH_SEED) against an
+    unsharded proof with the same seed (byte for byte); all timed."""
+    from zksnap_tpu_torch.curves.jacobian import bn254_ops
+    from zksnap_tpu_torch.fields import bn254_fr
+    from zksnap_tpu_torch.poly.domain import domain
+    from zksnap_tpu_torch.poly.ntt import (_ntt_impl, four_step_input_perm,
+                                           four_step_ntt,
+                                           four_step_output_perm)
+    from zksnap_tpu_torch.prover.plonk import prove
+    from zksnap_tpu_torch.prover.poly_device import commit_evals, prover_mesh
+
+    ops = bn254_ops()
+    home = srs.g1.x.device
+    ndev = mesh.shape["x"]
+
+    def affine(c):
+        return ops.to_affine_host(type(c)(c.x[None], c.y[None], c.z[None]))[0]
+
+    vals = random_canonical(srs.n, 20261017, home)
+    one, t_one = synced(lambda: commit_evals(srs.g1_lagrange, vals))
+    with prover_mesh(mesh):
+        sharded = [synced(lambda: commit_evals(srs.g1_lagrange, vals))
+                   for _ in range(2)]
+    require(all(affine(c) == affine(one) for c, _ in sharded),
+            "the sharded commit differs from the single-device one")
+    times["commit_one_card_s"] = t_one
+    times["commit_sharded_s"] = [t for _, t in sharded]
+
+    F = bn254_fr()
+    ntt_times = {}
+    for k in NTT_CHECK_K:
+        x = random_canonical(1 << k, 20261020 + k, home)
+        inp = torch.from_numpy(four_step_input_perm(k, ndev)).to(home)
+        outp = torch.from_numpy(four_step_output_perm(k, ndev)).to(home)
+        for inverse in (False, True):
+            dom = domain(k)
+            tw = dom.twiddles_inv(home) if inverse else dom.twiddles(home)
+            # each twice: the first call also builds the cached tables
+            singles = [synced(lambda: _ntt_impl(x, tw, k, F))
+                       for _ in range(2)]
+            want = singles[0][0]
+            runs = [synced(lambda: four_step_ntt(x[inp], k, mesh,
+                                                 inverse=inverse)[outp])
+                    for _ in range(2)]
+            require(all(torch.equal(got, want) for got, _ in runs),
+                    ("four-step NTT differs", k, inverse))
+            ntt_times[f"{k}_{'inverse' if inverse else 'forward'}"] = {
+                "one_card_s": [t for _, t in singles],
+                "four_step_s": [t for _, t in runs]}
+            del want, runs, singles
+        del x
+    times["ntt"] = ntt_times
+
+    plain, times["prove_one_card_s"] = synced(
+        lambda: prove(pk, inst, random.Random(MESH_SEED)))
+    require(plain == proof, "the seeded sharded proof differs from the "
+            "seeded single-device proof")
+    log(f"k={pk.vk.k} on {mesh}: the 2^{srs.k} commit equals the "
+        f"single-device one ({1e3 * t_one:.1f} ms; sharded "
+        + ", ".join(f"{1e3 * t:.1f}" for t in times["commit_sharded_s"])
+        + " ms); the four-step NTT equals the single-device NTT at 2^"
+        + " and 2^".join(map(str, NTT_CHECK_K)) + ", both ways ("
+        + "; ".join(f"2^{key}: "
+                    + ", ".join(f"{t * 1e3:.1f}" for t in v["one_card_s"])
+                    + " ms one card, "
+                    + ", ".join(f"{t * 1e3:.1f}" for t in v["four_step_s"])
+                    + " ms four-step" for key, v in ntt_times.items())
+        + "); the seeded sharded proof equals the single-device one "
+        f"(that one {times['prove_one_card_s']:.3f} s)")
+
+
+def check_last_card(times):
+    """K1 and K3 (padd) on the last card alone, against their plain
+    versions there: the kernels launch on their operands' device."""
+    from zksnap_tpu_torch.curves import fused
+    from zksnap_tpu_torch.curves.native import BN254_G1
+    from zksnap_tpu_torch.fields import bn254_fq, bn254_fr
+    from zksnap_tpu_torch.fields import pallas_mont as pm
+
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    rng = random.Random(20261021)
+    F = bn254_fr()
+    a, b = field_inputs(F, 8192, rng, last)
+    got = pm.mont_mul(a, b, F.p)
+    require(got.device == last and torch.equal(
+        got, pm.mont_mul_plain(a, b, F.p)), ("K1 on", last))
+    Fq = bn254_fq()
+    P, Qg, _ = point_inputs(BN254_G1, Fq, 8192, rng, last, False)
+    got = fused.point("padd", list(P + Qg), Fq.p, 3 * BN254_G1.b)
+    want = fused.point_plain("padd", list(P + Qg), Fq.p, 3 * BN254_G1.b)
+    require(all(g.device == last and torch.equal(g, w)
+                for g, w in zip(got, want)), ("K3 on", last))
+    times["last_card"] = str(last)
+    log(f"K1 and K3 on {last} alone: bit-exact against their plain versions")
+
+
+def distinct_cards() -> list:
+    """The first 2, or 4, of the visible cards (the largest power of two
+    up to 4)."""
+    count = min(torch.cuda.device_count(), MESH_SHARDS)
+    ndev = 1 << (count.bit_length() - 1)
+    return [torch.device("cuda", i) for i in range(ndev)]
+
+
+def mesh_scaling(srs, times):
+    """scaling_efficiency of the 2^k commit and the four-step 2^23 NTT over
+    1, 2 and 4 distinct cards (1 card: the single-device path)."""
+    from zksnap_tpu_torch.fields import bn254_fr
+    from zksnap_tpu_torch.parallel import scaling_efficiency
+    from zksnap_tpu_torch.poly.domain import domain
+    from zksnap_tpu_torch.poly.ntt import _ntt_impl, four_step_ntt
+    from zksnap_tpu_torch.prover.poly_device import commit_evals, prover_mesh
+
+    cards = distinct_cards()
+    sizes = [n for n in (1, 2, 4) if n <= len(cards)]
+    home = srs.g1.x.device
+    vals = random_canonical(srs.n, 20261017, home)
+    k = NTT_CHECK_K[-1]
+    x = random_canonical(1 << k, 20261020 + k, home)
+    F = bn254_fr()
+
+    def commit(n, mesh):
+        with prover_mesh(mesh):
+            synced(lambda: commit_evals(srs.g1_lagrange, vals))
+
+    def ntt(n, mesh):
+        if n == 1:
+            synced(lambda: _ntt_impl(x, domain(k).twiddles(home), k, F))
+        else:
+            synced(lambda: four_step_ntt(x, k, mesh))
+
+    def mesh_for(n):
+        return card_mesh(cards[:n])
+
+    times["scaling_commit"] = scaling_efficiency(commit, sizes, mesh_for)
+    times["scaling_ntt"] = scaling_efficiency(ntt, sizes, mesh_for)
+    for name in ("commit", "ntt"):
+        log(f"scaling_efficiency, {name}: " + "; ".join(
+            f"{r['n']} card(s) {r['seconds'] * 1e3:.1f} ms, efficiency "
+            f"{r['efficiency']:.3f}" for r in times["scaling_" + name]))
+
+
+def phase_mesh_k21(dev, srs, pk, inst, path, times):
+    """The k=21 key on a virtual mesh of MESH_SHARDS x `dev` (the sharded
+    prove driven through `path`, which counts its launches), then the
+    same on distinct cards when the machine has two or more: first K1
+    and K3 on the last card alone, then the mesh over the first 2 or 4
+    cards and the scaling of its commit and NTT."""
+    needs = ("K1", "K2", "K3", "K4", "K5", "K6")
+    virtual = times.setdefault("virtual", {})
+    vmesh = card_mesh([dev] * MESH_SHARDS)
+    proof = path(f"PLUME voter k={pk.vk.k} on a virtual mesh",
+                 lambda: mesh_prove(pk, inst, vmesh, virtual), needs)
+    mesh_parity(srs, pk, inst, vmesh, proof, virtual)
+    phase_mesh_cards(srs, pk, inst, path, times)
+
+
+def phase_mesh_cards(srs, pk, inst, path, times):
+    """With two or more cards: K1 and K3 on the last card alone, then the
+    k=21 checks of phase_mesh_k21 over the first 2 or 4 cards and the
+    scaling of their commit and NTT; with one card, a line that says
+    they did not run."""
+    needs = ("K1", "K2", "K3", "K4", "K5", "K6")
+    if torch.cuda.device_count() < 2:
+        log("mesh over distinct cards: not run (1 device)")
+        times["cards"] = "not run (1 device)"
+        return
+    cards = times.setdefault("cards", {})
+    check_last_card(cards)
+    cmesh = card_mesh(distinct_cards())
+    proof = path(f"PLUME voter k={pk.vk.k} on {len(cmesh.device_list())} "
+                 "cards", lambda: mesh_prove(pk, inst, cmesh, cards), needs)
+    mesh_parity(srs, pk, inst, cmesh, proof, cards)
+    mesh_scaling(srs, cards)
+
+
+_WARM_CHILD = r"""
+import json, random, sys, time
+import torch
+from zksnap_tpu_torch.circuits.voter import VoterFlags, voter_circuit
+from zksnap_tpu_torch.natives import generate_random_voter_circuit_inputs
+from zksnap_tpu_torch.prover.plonk import keygen, prove, verify
+from zksnap_tpu_torch.prover.srs import gen_srs
+from zksnap_tpu_torch.prover.warmup import warm_prove
+from zksnap_tpu_torch.trace import Context
+
+warm, srs_dir, seed, lookup_bits, k = (sys.argv[1] == "warm", sys.argv[2],
+                                       int(sys.argv[3]), int(sys.argv[4]),
+                                       int(sys.argv[5]))
+t_start = time.time()
+ctx = Context(lookup_bits=lookup_bits)
+pub = []
+voter_circuit(ctx, generate_random_voter_circuit_inputs(random.Random(seed)),
+              pub, VoterFlags(check_plume=False))
+inst = [c.value for c in pub]
+srs = gen_srs(k, cache_dir=srs_dir)
+torch.cuda.synchronize()
+out = {"setup_s": time.time() - t_start}
+if warm:
+    t0 = time.time()
+    out["warm_tasks_s"] = warm_prove(ctx, k)
+    out["warm_prove_s"] = time.time() - t0
+t0 = time.time()
+pk = keygen(ctx, k, srs)
+torch.cuda.synchronize()
+out["keygen_s"] = time.time() - t0
+t0 = time.time()
+proof = prove(pk, inst)
+torch.cuda.synchronize()
+out["first_prove_s"] = time.time() - t0
+out["verifies"] = verify(pk.vk, srs.g2, srs.tau_g2, inst, proof)
+print(json.dumps(out))
+"""
+
+
+def phase_warm_prove(work, times):
+    """warm_prove's effect on a first proof: two child processes on the
+    kernel library already built, the voter at k=13 (its SRS already in
+    `work`): one runs warm_prove, then keygen and the first prove; the
+    other keygen and the first prove alone."""
+    with open(os.path.join(VECTORS, "torch_port_v1.json")) as f:
+        v = json.load(f)["voter_k13"]
+    for mode in ("warm", "cold"):
+        res = subprocess.run(
+            [sys.executable, "-c", _WARM_CHILD, mode, work,
+             str(v["inputs_seed"]), str(v["lookup_bits"]), str(v["k"])],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        require(res.returncode == 0, ("warm_prove child", mode,
+                                      res.stderr[-2000:]))
+        times[mode] = json.loads(res.stdout.strip().splitlines()[-1])
+        require(times[mode]["verifies"], ("warm_prove child", mode))
+    warm, cold = times["warm"], times["cold"]
+    log("warm_prove, voter k={k}: tasks {tasks} ({total:.3f} s); then keygen "
+        "{wk:.3f} s, first prove {wp:.3f} s; without it keygen {ck:.3f} s, "
+        "first prove {cp:.3f} s".format(
+            k=v["k"], total=warm["warm_prove_s"], wk=warm["keygen_s"],
+            wp=warm["first_prove_s"], ck=cold["keygen_s"],
+            cp=cold["first_prove_s"], tasks=", ".join(
+                f"{name} {s:.3f} s" for name, s in warm["warm_tasks_s"].items())))
+
+
 def phase_lazy_k7(dev, srs_dir, times):
     """The K=7 keygen with its fixed columns lazy (the threshold forced to
     0): the frozen JAX vk digest; the key saved with save_pk and loaded
@@ -2130,19 +2482,24 @@ def main():
                             dir=os.path.join(ROOT, "build"))
     k13, k21, srs15, protocol, serving, cli_times = {}, {}, {}, {}, {}, {}
     lazy, poseidon, wrap = {}, {}, {}
+    mesh7, mesh21, warm13 = {}, {}, {}
     path_launches = {}
     k1_k4 = ("K1", "K2", "K3", "K4")
     try:
         phase3(dev, work)
+        path("K=7 on a virtual mesh",
+             lambda: phase_mesh_k7(dev, work, mesh7), k1_k4)
         phase_lazy_k7(dev, work, lazy)
         pk, inst = path("voter k=13", lambda: phase4(dev, work, k13), k1_k4)
         profile_prove(pk, inst, k13)
         del pk
+        phase_warm_prove(work, warm13)
         with fused_reduce("1"):
             srs, pk, inst = path(
                 "PLUME voter k=21", lambda: phase_plume(dev, work, k21),
                 k1_k4 + ("K5", "K6"))
             profile_prove(pk, inst, k21)
+            phase_mesh_k21(dev, srs, pk, inst, path, mesh21)
         del pk
         fused_commit_parity(srs, k21)
         fixed_base_commit_2p21(srs, k21)
@@ -2212,7 +2569,8 @@ def main():
                    "ceremony_srs_k15": srs15, "protocol_k13": protocol,
                    "server_k13": serving, "cli_state_k15": cli_times,
                    "lazy_k7": lazy, "poseidon_2p16": poseidon,
-                   "wrapper_toy": wrap,
+                   "wrapper_toy": wrap, "mesh_k7": mesh7,
+                   "mesh_k21": mesh21, "warm_prove_k13": warm13,
                    "path_launches": path_launches,
                    "launches_k7_k8": launches_k7_k8, "ptxas": ptxas,
                    "k4_k5_ptxas": scan_ptxas, "k4_k5_sass": scan_sass,

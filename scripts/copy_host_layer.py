@@ -42,7 +42,7 @@ HOST = [
     "hash/__init__.py",
     "circuits/wrapper.py", "prover/verifier_gadget.py",
     "gadgets/ecc_msm.py", "gadgets/transcript_gadget.py",
-    "parallel/pipeline.py",
+    "parallel/pipeline.py", "parallel/batch_witness.py",
 ]
 
 PARTIAL = {

@@ -65,12 +65,20 @@ PyTorch port (zksnap_tpu_torch) is held to without rerunning the JAX prover.
   (n) `poseidon`: `hash_fixed_batched` on seeded inputs of widths 1 to 5
       (three hashes each), `PoseidonSpec.permute` on two seeded states
       and `build_tree_device` over 8 seeded leaves, as canonical integers
-      (each input shape costs a jit compile of the 65-round chain).
+      (each input shape costs a jit compile of the 65-round chain);
+  (o) `four_step`: `four_step_ntt` of zksnap_tpu/poly/ntt.py, forward and
+      inverse, at k=9 over meshes of 2 and 4 of the 8 virtual CPU devices
+      (as tests/conftest.py makes them), on the input permuted by
+      `four_step_input_perm`: the sha256 of each output's uint32 limbs in
+      the transform's own (permuted) layout; the input is 512 values from
+      `random.Random(FOUR_STEP_SEED).randrange(p)` in Montgomery form
+      (each shape's shard_map compiles for about 14 s).
 
 Run on the CPU:  python scripts/gen_torch_port_vectors.py [part ...]
 with parts among k7, voter_k13, msm, reduce, ladder, plume, pallas_point,
-state_k15, state_k13, srs_file, exp_mul, wrapper_toy, poseidon (all by
-default); the parts named replace their entries in the existing file.
+state_k15, state_k13, srs_file, exp_mul, wrapper_toy, poseidon, four_step
+(all by default); the parts named replace their entries in the existing
+file.
 """
 
 import hashlib
@@ -84,6 +92,11 @@ import time
 sys.path.insert(0, ".")
 sys.path.insert(0, os.path.join(os.path.dirname(__file__)))
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
+if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS",
+                                                                ""):
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                               + " --xla_force_host_platform_device_count=8"
+                               ).strip()
 
 import jax  # noqa: E402
 
@@ -103,10 +116,11 @@ EXP_MUL_SEED, EXP_MUL_N = 28, 256
 WRAP_CHILD_SEED = 30
 WRAP_TOY_K = 18
 POSEIDON_SEED = 31
+FOUR_STEP_SEED, FOUR_STEP_K, FOUR_STEP_NDEV = 32, 9, (2, 4)
 PARTS = ("k7", "voter_k13", "msm", "reduce", "ladder", "plume",
          "pallas_point",
          "state_k15", "state_k13", "srs_file", "exp_mul", "wrapper_toy",
-         "poseidon")
+         "poseidon", "four_step")
 
 
 def vk_digest(vk) -> str:
@@ -714,6 +728,29 @@ def part_poseidon() -> dict:
     return {"poseidon": {"seed": POSEIDON_SEED, "hashes": hashes,
                          "permute": [strs(perm[:3]), strs(perm[3:])],
                          "tree": tree}}
+
+
+def part_four_step() -> dict:
+    import jax.numpy as jnp
+    import numpy as np
+
+    from zksnap_tpu.fields.field import bn254_fr
+    from zksnap_tpu.poly.ntt import four_step_input_perm, four_step_ntt
+
+    F = bn254_fr()
+    k = FOUR_STEP_K
+    rng = random.Random(FOUR_STEP_SEED)
+    x = np.asarray(F.to_mont([rng.randrange(F.p) for _ in range(1 << k)]))
+    out = {}
+    for ndev in FOUR_STEP_NDEV:
+        mesh = jax.make_mesh((ndev,), ("x",), devices=jax.devices()[:ndev])
+        xp = jnp.asarray(x[four_step_input_perm(k, ndev)])
+        for inverse in (False, True):
+            y = np.asarray(four_step_ntt(xp, k, mesh, inverse=inverse))
+            out[f"{ndev}_{'inverse' if inverse else 'forward'}"] = (
+                hashlib.sha256(np.ascontiguousarray(y, dtype="<u4")
+                               .tobytes()).hexdigest())
+    return {"four_step": {"seed": FOUR_STEP_SEED, "k": k, "sha256": out}}
 
 
 if __name__ == "__main__":

@@ -114,7 +114,8 @@ def test_copies_found():
                  "natives/merkle.py", "hash/__init__.py",
                  "circuits/wrapper.py", "prover/verifier_gadget.py",
                  "gadgets/ecc_msm.py", "gadgets/transcript_gadget.py",
-                 "parallel/pipeline.py", *PORT_OWN):
+                 "parallel/pipeline.py", "parallel/batch_witness.py",
+                 *PORT_OWN):
         assert must in got, must
 
 
@@ -176,7 +177,8 @@ for m in pkgutil.walk_packages(zksnap_tpu_torch.__path__, "zksnap_tpu_torch."):
     importlib.import_module(m.name)
 for m in ("cli", "server", "prover.serialize", "prover.accumulator",
           "prover.recursion", "curves.pallas_point", "circuits.wrapper",
-          "prover.verifier_gadget", "parallel.pipeline"):
+          "prover.verifier_gadget", "parallel.pipeline",
+          "parallel.batch_witness", "parallel.sharded", "prover.warmup"):
     assert "zksnap_tpu_torch." + m in sys.modules, m
 assert not any(k == "jax" or k.startswith(("jax.", "zksnap_tpu."))
                for k in sys.modules if sys.modules[k] is not None)

@@ -7,8 +7,9 @@ frozen vk digest; its verifier accepts the frozen JAX proof; a seeded
 port proof is byte-identical to the frozen seeded JAX proof
 (tests/vectors/torch_port_v1.json); the JAX verifier accepts the port's
 proof and rejects tampered, truncated and wrong-instance ones.  One
-keygen and one proof serve the module.  The voter circuit at k=13 is
-marked slow.  Tolerance: none -- bytes and integers.
+keygen and one proof serve the module.  The voter circuit at k=13 and
+a seeded proof on a virtual mesh are marked slow.  Tolerance: none --
+bytes and integers.
 """
 
 import dataclasses
@@ -35,11 +36,13 @@ from zksnap_tpu_torch.curves.proj import ProjOps
 from zksnap_tpu_torch.experiments import (exp_mul_mxu, exp_mul_variants,
                                           exp_vpu_rates)
 from zksnap_tpu_torch.fields.field import PrimeField
+from zksnap_tpu_torch.parallel import initialize, make_mesh, protocol_mesh
 from zksnap_tpu_torch.poly.domain import Domain
 from zksnap_tpu_torch.prover import device_rounds, plonk, poly_device, serialize
 from zksnap_tpu_torch.prover.convert import pk_from_numpy, srs_from_numpy
 from zksnap_tpu_torch.prover.srs import (gen_srs, load_srs, srs_cache_path,
                                          srs_from_arrays)
+from zksnap_tpu_torch.prover.warmup import warm_prove
 
 torch.set_num_threads(1)
 
@@ -155,6 +158,19 @@ def test_seeded_proof_matches_frozen_jax_proof(port):
     assert port["proof"].hex() == port["frozen"]["proof_hex"]
 
 
+@pytest.mark.slow
+def test_mesh_seeded_proof_matches_frozen_jax_proof(port):
+    """A seeded proof from the module's key on a virtual mesh of four CPU
+    entries (every commit and NTT sharded) is the frozen seeded JAX
+    proof, byte for byte: commitments are written as affine points.
+    About two minutes on one CPU thread (slow); chip_smoke.py runs it on
+    the card."""
+    mesh = make_mesh((4,), ("x",), [torch.device("cpu")] * 4)
+    proof = plonk.prove(port["pk"], port["inst"],
+                        random.Random(port["frozen"]["rng_seed"]), mesh=mesh)
+    assert proof.hex() == port["frozen"]["proof_hex"]
+
+
 def test_jax_verifier_accepts_port_proof(port, jax_verifier):
     proof, inst = port["proof"], port["inst"]
     assert jax_verifier(inst, proof)
@@ -237,7 +253,8 @@ def test_instance_commitment_matches_jax(port, jax_verifier, monkeypatch,
     device_rounds._omega_pows_dev, load_srs, serialize.load_pk,
     plonk.LazyFixedCoeffs.__init__,
     exp_vpu_rates.make_chain, exp_vpu_rates.make_dot,
-    exp_mul_variants.make_variant, exp_mul_mxu.make_kernel],
+    exp_mul_variants.make_variant, exp_mul_mxu.make_kernel,
+    make_mesh, protocol_mesh, initialize, warm_prove],
     ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     """The public entry points and tensor constructors run on the CUDA

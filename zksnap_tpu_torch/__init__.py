@@ -7,9 +7,14 @@ Same module paths as the JAX package, which stays the reference:
                   (add / sub) in ``fields/pallas_mont.py``.
 - ``curves``   -- batched group law (Jacobian and RCB projective); kernels
                   K3 (point ops) and K4 (bucket scan) in ``curves/fused.py``.
-- ``poly``     -- evaluation domains and the radix-2 NTT.
+- ``poly``     -- evaluation domains, the radix-2 NTT and the mesh-sharded
+                  four-step NTT.
 - ``msm``      -- Pippenger and fixed-base multi-scalar multiplication.
-- ``prover``   -- SRS, keygen, the PLONK-KZG prover and the host verifier.
+- ``prover``   -- SRS, keygen, the PLONK-KZG prover (on one device or
+                  sharded over a mesh), its warm-up and the host verifier.
+- ``parallel`` -- device meshes (one controller; a mesh may name one card
+                  several times), the sharded MSM, ``torch.distributed``
+                  bootstrap, and host pools for witnesses and rounds.
 - ``trace``, ``gadgets``, ``circuits``, ``natives``, ``hash`` -- jax-free
   copies of the JAX package's host layer (each file names its source).
 

@@ -269,10 +269,10 @@ def point(kind: str, arrays, p: int, b3: int = 0):
         ptrs = ptrs + ptrs  # dbl kinds read only the first three
     outs = [torch.empty((n, N_LIMBS), dtype=torch.int32, device=dev)
             for _ in range(3)]
-    err = kernels.library().zk_point(
-        KINDS[kind], *ptrs, *[o.data_ptr() for o in outs], n, int(b3),
-        kernels.sm_count(dev.index), kernels.mod_ptr(p),
-        kernels.stream_of(outs[0]))
+    with kernels.on_device(*ins, *outs) as stream:
+        err = kernels.library().zk_point(
+            KINDS[kind], *ptrs, *[o.data_ptr() for o in outs], n, int(b3),
+            kernels.sm_count(dev.index), kernels.mod_ptr(p), stream)
     kernels.check(err, f"zk_point({kind})")
     point.launches += 1
     return tuple(o.reshape(*batch, N_LIMBS) for o in outs)
@@ -332,10 +332,10 @@ def bucket_scan(pts, flags, M: int, K: int, p: int, b3: int = 0):
     fl = flags.reshape(n).to(torch.uint8).contiguous()
     outs = [torch.empty((K, M, N_LIMBS), dtype=torch.int32, device=dev)
             for _ in range(3)]
-    err = kernels.library().zk_bucket_scan(
-        fl.data_ptr(), *ins, *[o.data_ptr() for o in outs], M, K,
-        1 if b3 else 0, int(b3), kernels.mod_ptr(p),
-        kernels.stream_of(outs[0]))
+    with kernels.on_device(*pts, fl, *outs) as stream:
+        err = kernels.library().zk_bucket_scan(
+            fl.data_ptr(), *ins, *[o.data_ptr() for o in outs], M, K,
+            1 if b3 else 0, int(b3), kernels.mod_ptr(p), stream)
     kernels.check(err, "zk_bucket_scan")
     bucket_scan.launches += 1
     return tuple(outs)
@@ -496,12 +496,12 @@ def weighted_suffix(flat, B: int, p: int, b3: int = 0):
     chunks = total // C
     scratch = torch.empty((3 * (total + 2 * chunks + 2 * (chunks // group)),
                            N_LIMBS), dtype=torch.int32, device=dev)
-    err = kernels.library().zk_weighted_suffix(
-        *[kernels.rows(a, total) for a in ins],
-        *[kernels.rows(o, total) for o in outs], scratch.data_ptr(),
-        total, B, C, group, CARRY_THREADS, 1 if b3 else 0, int(b3),
-        kernels.mod_ptr(p),
-        kernels.stream_of(outs[0]))
+    with kernels.on_device(*ins, *outs, scratch) as stream:
+        err = kernels.library().zk_weighted_suffix(
+            *[kernels.rows(a, total) for a in ins],
+            *[kernels.rows(o, total) for o in outs], scratch.data_ptr(),
+            total, B, C, group, CARRY_THREADS, 1 if b3 else 0, int(b3),
+            kernels.mod_ptr(p), stream)
     kernels.check(err, "zk_weighted_suffix")
     weighted_suffix.launches += 1
     return tuple(outs)
@@ -557,11 +557,11 @@ def ladder_tree(wsums, c: int, W: int, p: int, b3: int = 0):
     ins = [a.contiguous() for a in wsums]
     outs = [torch.empty((LADDER_LANES, N_LIMBS), dtype=torch.int32,
                         device=dev) for _ in range(3)]
-    err = kernels.library().zk_ladder_tree(
-        *[kernels.rows(a, W) for a in ins],
-        *[kernels.rows(o, LADDER_LANES) for o in outs], c, W,
-        1 if b3 else 0, int(b3), kernels.mod_ptr(p),
-        kernels.stream_of(outs[0]))
+    with kernels.on_device(*ins, *outs) as stream:
+        err = kernels.library().zk_ladder_tree(
+            *[kernels.rows(a, W) for a in ins],
+            *[kernels.rows(o, LADDER_LANES) for o in outs], c, W,
+            1 if b3 else 0, int(b3), kernels.mod_ptr(p), stream)
     kernels.check(err, "zk_ladder_tree")
     ladder_tree.launches += 1
     return tuple(o[0] for o in outs)

@@ -91,9 +91,11 @@ def _launch_dbl(ins, n: int, p_int: int):
     from .. import kernels
 
     outs = _empty(n, 3, ins[0].device)
-    err = kernels.library().zk_jac_dbl(
-        *[kernels.rows(a, n) for a in ins], *[kernels.rows(o, n) for o in outs],
-        n, kernels.mod_ptr(p_int), kernels.stream_of(outs[0]))
+    with kernels.on_device(*ins, *outs) as stream:
+        err = kernels.library().zk_jac_dbl(
+            *[kernels.rows(a, n) for a in ins],
+            *[kernels.rows(o, n) for o in outs], n, kernels.mod_ptr(p_int),
+            stream)
     kernels.check(err, "zk_jac_dbl")
     point_dbl_batch.launches += 1
     return outs
@@ -109,9 +111,11 @@ def point_add_batch(p_coords, q_coords, p_int: int, n0: int):
     _check(coords, p_int, n0)
     ins, batch, n = _rows(coords)
     outs = _empty(n, 3, ins[0].device)
-    err = kernels.library().zk_jac_add(
-        *[kernels.rows(a, n) for a in ins], *[kernels.rows(o, n) for o in outs],
-        n, kernels.mod_ptr(p_int), kernels.stream_of(outs[0]))
+    with kernels.on_device(*ins, *outs) as stream:
+        err = kernels.library().zk_jac_add(
+            *[kernels.rows(a, n) for a in ins],
+            *[kernels.rows(o, n) for o in outs], n, kernels.mod_ptr(p_int),
+            stream)
     kernels.check(err, "zk_jac_add")
     point_add_batch.launches += 1
     return _out(outs, batch)
@@ -151,15 +155,16 @@ def point_add_staged(p_coords, q_coords, p_int: int, n0: int):
     ins, batch, n = _rows(coords)
     lib, mod = kernels.library(), kernels.mod_ptr(p_int)
     cross = _empty(n, 6, ins[0].device)  # u1, u2, s1, s2, z1z1, z2z2
-    stream = kernels.stream_of(cross[0])
-    err = lib.zk_staged_add_a(_pointers(ins, n), _pointers(cross, n), n, mod,
-                              stream)
+    with kernels.on_device(*ins, *cross) as stream:
+        err = lib.zk_staged_add_a(_pointers(ins, n), _pointers(cross, n), n,
+                                  mod, stream)
     kernels.check(err, "zk_staged_add_a")
     point_add_staged.launches += 1
     dbl = _launch_dbl(ins[:3], n, p_int)
     outs = _empty(n, 3, ins[0].device)
-    err = lib.zk_staged_add_b(_pointers(cross + ins + dbl, n),
-                              _pointers(outs, n), n, mod, stream)
+    with kernels.on_device(*cross, *ins, *dbl, *outs) as stream:
+        err = lib.zk_staged_add_b(_pointers(cross + ins + dbl, n),
+                                  _pointers(outs, n), n, mod, stream)
     kernels.check(err, "zk_staged_add_b")
     point_add_staged.launches += 1
     return _out(outs, batch)

@@ -231,12 +231,12 @@ def mont_mul_mxu(a: torch.Tensor, b: torch.Tensor, variant: str,
 
     nmat, pmat = _device_tables(p, str(a.device))
     out = torch.empty_like(a)
-    err = kernels.library().zk_exp_mxu_mul(
-        VARIANTS.index(variant), kernels.operand(a, torch.int32, (16, n)),
-        kernels.operand(b, torch.int32, (16, n)),
-        kernels.operand(out, torch.int32, (16, n)), n,
-        kernels.mod16_ptr(p), nmat.data_ptr(), pmat.data_ptr(),
-        kernels.stream_of(out))
+    with kernels.on_device(a, b, out, nmat, pmat) as stream:
+        err = kernels.library().zk_exp_mxu_mul(
+            VARIANTS.index(variant), kernels.operand(a, torch.int32, (16, n)),
+            kernels.operand(b, torch.int32, (16, n)),
+            kernels.operand(out, torch.int32, (16, n)), n,
+            kernels.mod16_ptr(p), nmat.data_ptr(), pmat.data_ptr(), stream)
     kernels.check(err, "zk_exp_mxu_mul")
     mont_mul_mxu.launches += 1
     return out

@@ -63,11 +63,12 @@ def mul_limb_major(a: torch.Tensor, b: torch.Tensor, p: int,
     from .. import kernels
 
     out = torch.empty_like(a)
-    err = kernels.library().zk_exp_mul16(
-        kernels.operand(a, torch.int32, (16, n)),
-        kernels.operand(b, torch.int32, (16, n)),
-        kernels.operand(out, torch.int32, (16, n)), n, n_muls, int(rolled),
-        kernels.mod16_ptr(p), kernels.stream_of(out))
+    with kernels.on_device(a, b, out) as stream:
+        err = kernels.library().zk_exp_mul16(
+            kernels.operand(a, torch.int32, (16, n)),
+            kernels.operand(b, torch.int32, (16, n)),
+            kernels.operand(out, torch.int32, (16, n)), n, n_muls,
+            int(rolled), kernels.mod16_ptr(p), stream)
     kernels.check(err, "zk_exp_mul16")
     mul_limb_major.launches += 1
     return out

@@ -111,11 +111,12 @@ def op_chain(kind: str, a: torch.Tensor, b: torch.Tensor,
     from .. import kernels
 
     out = torch.empty_like(a)
-    err = kernels.library().zk_exp_chain(
-        CHAIN_KINDS.index(kind), kernels.operand(a, torch.int32, a.shape),
-        kernels.operand(b, torch.int32, a.shape),
-        kernels.operand(out, torch.int32, a.shape), a.numel(), chain,
-        kernels.stream_of(out))
+    with kernels.on_device(a, b, out) as stream:
+        err = kernels.library().zk_exp_chain(
+            CHAIN_KINDS.index(kind), kernels.operand(a, torch.int32, a.shape),
+            kernels.operand(b, torch.int32, a.shape),
+            kernels.operand(out, torch.int32, a.shape), a.numel(), chain,
+            stream)
     kernels.check(err, "zk_exp_chain")
     op_chain.launches += 1
     return out
@@ -180,11 +181,11 @@ def dot_chain(kind: str, lhs: torch.Tensor, x0: torch.Tensor,
     if W % 8:
         raise ValueError(f"W = {W} is not a multiple of 8")
     out = torch.empty((64, W), dtype=_dot_dtypes(kind)[2], device=x0.device)
-    err = kernels.library().zk_exp_dot(
-        DOT_KINDS.index(kind), kernels.operand(lhs, l_dt, (64, 32)),
-        kernels.operand(x0, x_dt, (32, W)),
-        kernels.operand(out, out.dtype, (64, W)), W, n_mm,
-        kernels.stream_of(out))
+    with kernels.on_device(lhs, x0, out) as stream:
+        err = kernels.library().zk_exp_dot(
+            DOT_KINDS.index(kind), kernels.operand(lhs, l_dt, (64, 32)),
+            kernels.operand(x0, x_dt, (32, W)),
+            kernels.operand(out, out.dtype, (64, W)), W, n_mm, stream)
     kernels.check(err, "zk_exp_dot")
     dot_chain.launches += 1
     return out

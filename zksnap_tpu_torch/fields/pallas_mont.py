@@ -161,10 +161,11 @@ def mont_mul(a, b, p: int):
 
     ar, br, sa, sb, batch, n = _operands(a, b)
     out = torch.empty((n, N_LIMBS), dtype=torch.int32, device=a.device)
-    err = kernels.library().zk_mont_mul(
-        kernels.rows(ar, n if sa else 1), kernels.rows(br, n if sb else 1),
-        kernels.rows(out, n), n, sa, sb,
-        kernels.mod_ptr(p), kernels.stream_of(out))
+    with kernels.on_device(ar, br, out) as stream:
+        err = kernels.library().zk_mont_mul(
+            kernels.rows(ar, n if sa else 1),
+            kernels.rows(br, n if sb else 1), kernels.rows(out, n), n, sa,
+            sb, kernels.mod_ptr(p), stream)
     kernels.check(err, "zk_mont_mul")
     mont_mul.launches += 1
     return out.reshape(*batch, N_LIMBS)
@@ -183,11 +184,11 @@ def mont_addsub(a, b, p: int, mode: str):
 
     ar, br, sa, sb, batch, n = _operands(a, b)
     out = torch.empty((n, N_LIMBS), dtype=torch.int32, device=a.device)
-    err = kernels.library().zk_mont_addsub(
-        kernels.rows(ar, n if sa else 1), kernels.rows(br, n if sb else 1),
-        kernels.rows(out, n), n, sa, sb,
-        0 if mode == "add" else 1, kernels.mod_ptr(p),
-        kernels.stream_of(out))
+    with kernels.on_device(ar, br, out) as stream:
+        err = kernels.library().zk_mont_addsub(
+            kernels.rows(ar, n if sa else 1),
+            kernels.rows(br, n if sb else 1), kernels.rows(out, n), n, sa,
+            sb, 0 if mode == "add" else 1, kernels.mod_ptr(p), stream)
     kernels.check(err, "zk_mont_addsub")
     mont_addsub.launches += 1
     return out.reshape(*batch, N_LIMBS)

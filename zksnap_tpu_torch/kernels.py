@@ -5,7 +5,9 @@ each source, all started together, and link into a shared library with a
 plain C interface, `build/torch_kernels/libzksnap_kernels_<srchash>.so`
 at the repository root; `ctypes` loads it.  Every C entry launches on
 the caller's stream and returns `cudaGetLastError()`; `check` raises if
-that is not 0.
+that is not 0.  A wrapper calls its entry inside `on_device(...)` of its
+operands, which makes their device the current one (the entries launch
+there) and gives the stream.
 
 Nothing here runs at import time: the CPU tests import every module, and
 a machine without `nvcc` never reaches `library()`.
@@ -13,6 +15,7 @@ a machine without `nvcc` never reaches `library()`.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -163,10 +166,25 @@ def mod16_ptr(p: int) -> int:
     return ctypes.addressof(mod16_words(p))
 
 
-def stream_of(t) -> int:
+@contextlib.contextmanager
+def on_device(*tensors):
+    """Make the device of `tensors` (one CUDA device, or this raises) the
+    current one for the block, and yield the pointer of its current
+    stream: the C entries launch on the thread's current device, so a
+    kernel for a tensor on cuda:1 must be launched under cuda:1, on a
+    stream of cuda:1."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"kernel operands on {len(devs)} devices: "
+                         f"{sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type != "cuda":
+        raise ValueError(f"kernel operands must be on a CUDA device, got "
+                         f"{dev}")
+    with torch.cuda.device(dev):
+        yield torch.cuda.current_stream(dev).cuda_stream
 
 
 def rows(t, n: int) -> int:

@@ -208,9 +208,21 @@ LAZY_FIXED_BYTES = 2 << 30
 
 
 def keygen(ctx: Context, k: int, srs: SRS | None = None,
-           device="cuda") -> ProvingKey:
+           device="cuda", mesh=None, mesh_axis: str = "x") -> ProvingKey:
     """Layout + pk/vk generation on the device of `srs` (or `device`, the
-    card unless the caller names the CPU, when the SRS is made here)."""
+    card unless the caller names the CPU, when the SRS is made here);
+    `mesh` (a parallel.Mesh) runs the commitment MSMs and NTTs
+    mesh-sharded (see `prove`)."""
+    if mesh is not None:
+        from .poly_device import prover_mesh
+
+        with prover_mesh(mesh, mesh_axis):
+            return _keygen_impl(ctx, k, srs, device)
+    return _keygen_impl(ctx, k, srs, device)
+
+
+def _keygen_impl(ctx: Context, k: int, srs: SRS | None,
+                 device) -> ProvingKey:
     from .keygen import quotient_ext_log
     from ..poly.domain import domain
 
@@ -295,11 +307,26 @@ def rebind_witness(pk: ProvingKey, ctx: Context) -> ProvingKey:
                       fixed_coeffs=pk.fixed_coeffs)
 
 
-def prove(pk: ProvingKey, instances: list[int], rng=None) -> bytes:
+def prove(pk: ProvingKey, instances: list[int], rng=None, mesh=None,
+          mesh_axis: str = "x") -> bytes:
     """Prove; ZK blinding fills the ZK_ROWS tail rows of every witness-
     carrying committed polynomial with `rng.randrange` draws (lookup
-    columns with random table entries)."""
-    return _prove_impl(pk, instances, rng or secrets.SystemRandom())
+    columns with random table entries).
+
+    `mesh`: a parallel.Mesh -- every commitment MSM runs sharded (a local
+    Pippenger a shard, the partials summed on the key's device) and every
+    NTT runs as the four-step transform over `mesh_axis`
+    (poly_device.prover_mesh); the rest stays on the key's device.
+    `mesh=None` (default) is the single-device path.  A commitment is
+    written as an affine point, so the proof's bytes do not depend on the
+    mesh."""
+    rng = rng or secrets.SystemRandom()
+    if mesh is not None:
+        from .poly_device import prover_mesh
+
+        with prover_mesh(mesh, mesh_axis):
+            return _prove_impl(pk, instances, rng)
+    return _prove_impl(pk, instances, rng)
 
 
 def _prove_impl(pk: ProvingKey, instances: list[int], rng) -> bytes:

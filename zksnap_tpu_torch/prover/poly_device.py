@@ -11,8 +11,11 @@
   * `rlc_list` -- random linear combinations.
 
 Every tensor stays on the device of its inputs; `device` arguments name
-it where a function creates tensors from host data.  The JAX package's
-mesh-sharded paths are not ported yet.
+it where a function creates tensors from host data.  Inside
+`prover_mesh(mesh, axis)` the commits and NTTs of a domain that the mesh
+splits (`_mesh_for`) run sharded over the mesh's devices (parallel/,
+poly/ntt.py's four-step NTT) and bring their results back to the
+device of their inputs; everything else stays where it was.
 
 At rest (a proving key's fixed coefficients, a proof's witness
 coefficients) a poly is kept in `pack_poly`'s form: the 16 limbs, each
@@ -24,7 +27,9 @@ point of use: every function here that reads a poly accepts either form.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -38,6 +43,47 @@ from ..poly.domain import domain
 from ..poly.ntt import _ntt_impl
 
 FR = bn254_fr()
+
+
+# -- mesh context -------------------------------------------------------------
+#
+# `prover_mesh` makes every commitment MSM and every NTT issued inside the
+# context run mesh-sharded.  Elementwise work stays on the device of its
+# inputs (the key's).  With no active context everything is single-device.
+
+_MESH_TLS = threading.local()  # per-thread stack of (mesh, axis), as in
+# the JAX package
+
+
+def _mesh_stack() -> list:
+    st = getattr(_MESH_TLS, "stack", None)
+    if st is None:
+        st = _MESH_TLS.stack = []
+    return st
+
+
+@contextlib.contextmanager
+def prover_mesh(mesh, axis: str = "x"):
+    """Run prover commits and NTTs mesh-sharded inside this context."""
+    st = _mesh_stack()
+    st.append((mesh, axis))
+    try:
+        yield
+    finally:
+        st.pop()
+
+
+def _mesh_for(n: int):
+    """(mesh, axis) if a mesh is active and a length-n axis splits evenly
+    into >= ndev^2 elements (the four-step layout needs n2 % n1 == 0)."""
+    st = _mesh_stack()
+    if not st:
+        return None
+    mesh, axis = st[-1]
+    ndev = mesh.shape[axis]
+    if ndev <= 1 or n % ndev or n < ndev * ndev:
+        return None
+    return mesh, axis
 
 
 def pow_series_uncached(base_int: int, n: int, device="cuda"):
@@ -136,14 +182,43 @@ def _fb_table(points: JacPoint, n: int):
     return per_n[key]
 
 
+# A mesh commit's SRS shards, cached as `_fb_table`'s tables are: the
+# points of a shard whose device is not the SRS's are copied there once.
+# A shard on the SRS's own device is a slice of it, made anew each call
+# (free, and a cached view would keep its weak key alive).
+_SHARDS = WeakIdKeyDictionary()
+
+
+def _srs_shards(points: JacPoint, n: int, devs) -> list:
+    m = n // len(devs)
+    src = points.x.device
+    per_key = _SHARDS.setdefault(points.x, {})
+    out = []
+    for d, dev in enumerate(devs):
+        sl = [getattr(points, a)[d * m:(d + 1) * m] for a in ("x", "y", "z")]
+        if dev == src:
+            out.append((dev, JacPoint(*sl)))
+            continue
+        key = (n, len(devs), d, str(dev))
+        if key not in per_key:
+            per_key[key] = JacPoint(*(t.to(dev) for t in sl))
+        out.append((dev, per_key[key]))
+    return out
+
+
 def commit_evals(srs_lagrange: JacPoint, values) -> JacPoint:
     """Commit an evaluation-form poly: MSM(values, [L_i(tau)]G).
 
     values: [n, 16] CANONICAL scalar limbs.  The MSM runs in RCB
     projective coordinates; the result comes back as Jacobian
-    (X*Z, Y*Z^2, Z)."""
+    (X*Z, Y*Z^2, Z), on the device of `values`.  Under a mesh that
+    splits n, each shard runs Pippenger over its n/ndev points (window
+    width from the full n, window groups from the shard's, as the JAX
+    package's sharded commit) and a tree sums the partials; the
+    fixed-base path is then bypassed."""
     n = values.shape[0]
-    if (_FB_STATE["enabled"]
+    sh = _mesh_for(n)
+    if (sh is None and _FB_STATE["enabled"]
             and _FB_STATE["min_n"] <= n <= _FB_STATE["max_n"]):
         from ..msm.fixed_base import commit_fixed
 
@@ -154,10 +229,19 @@ def commit_evals(srs_lagrange: JacPoint, values) -> JacPoint:
     Fq = ops.F
     c = max(8, min(16, n.bit_length() - 4))
     n_windows = -(-254 // c)
-    r = msm_impl(ops, JacPoint(srs_lagrange.x[:n], srs_lagrange.y[:n],
-                               srs_lagrange.z[:n]), values, c, n_windows,
-                 window_group=_group_windows(n, n_windows),
-                 signed=n_windows * c > Fq.bits)
+    if sh is not None:
+        from ..parallel.sharded import combine_partials, shard_partials
+
+        devs = sh[0].axis_devices(sh[1])
+        parts = shard_partials(
+            ops, _srs_shards(srs_lagrange, n, devs), values, c, n_windows,
+            window_group=_group_windows(n // len(devs), n_windows))
+        r = combine_partials(ops, parts, values.device)
+    else:
+        r = msm_impl(ops, JacPoint(srs_lagrange.x[:n], srs_lagrange.y[:n],
+                                   srs_lagrange.z[:n]), values, c, n_windows,
+                     window_group=_group_windows(n, n_windows),
+                     signed=n_windows * c > Fq.bits)
     return JacPoint(Fq.mul(r.x, r.z), Fq.mul(r.y, Fq.square(r.z)), r.z)
 
 
@@ -177,19 +261,47 @@ def commit_coeffs(srs_monomial: JacPoint, coeffs) -> JacPoint:
 def evals_to_coeffs(evals, k: int):
     """[n,16] evaluations on H (natural order) -> coefficient form."""
     dom = domain(k)
-    c = _ntt_impl(_u32(evals), dom.twiddles_inv(evals.device), k, FR)
+    sh = _mesh_for(1 << k)
+    if sh is not None:
+        c = _four_step_natural(evals, k, sh, True)
+    else:
+        c = _ntt_impl(_u32(evals), dom.twiddles_inv(evals.device), k, FR)
     return FR.mul(c, FR.const_t(dom.n_inv, evals.device)[None, :])
 
 
 def coeffs_to_evals(coeffs, k: int):
     """[n,16] coefficient form -> evaluations on H (natural order)."""
+    sh = _mesh_for(1 << k)
+    if sh is not None:
+        return _four_step_natural(coeffs, k, sh, False)
     return _ntt_impl(_u32(coeffs), domain(k).twiddles(coeffs.device), k, FR)
 
 
 def coset_evals(coeffs, s_pows, k: int):
     """Evaluate a coefficient-form poly on the coset {s * w^i}: scale
-    coefficient j by s^j (s_pows, [n,16] Montgomery), then forward NTT."""
+    coefficient j by s^j (s_pows, [n,16] Montgomery), then forward NTT
+    (sharded under a mesh, as coeffs_to_evals)."""
     return coeffs_to_evals(FR.mul(_u32(coeffs), s_pows), k)
+
+
+# -- mesh-sharded NTT plumbing ------------------------------------------------
+
+@functools.lru_cache(maxsize=32)
+def _four_step_perms(k: int, ndev: int, device: str):
+    from ..poly.ntt import four_step_input_perm, four_step_output_perm
+
+    return (torch.from_numpy(four_step_input_perm(k, ndev)).to(device),
+            torch.from_numpy(four_step_output_perm(k, ndev)).to(device))
+
+
+def _four_step_natural(x, k: int, sh, inverse: bool):
+    """natural-order in -> natural-order out through the four-step NTT
+    (poly/ntt.py): the layout permutations are gathers on x's device."""
+    from ..poly.ntt import four_step_ntt
+
+    mesh, axis = sh
+    inp, outp = _four_step_perms(k, mesh.shape[axis], str(x.device))
+    return four_step_ntt(_u32(x)[inp], k, mesh, axis, inverse=inverse)[outp]
 
 
 # -- batched evaluation at a point ------------------------------------------
