@@ -9,9 +9,18 @@ Phases:
      spills logged; the main loop of each K11 chain from cuobjdump -sass;
      K4's and K5's kernels' registers, stack frames and SASS instruction
      mix; K3's projective kinds and K6's RCB kernel required inlined: a
-     0-byte stack frame and no CALL in their SASS);
+     0-byte stack frame and no CALL in their SASS; K1's kernels required
+     inlined too (no frame, no CALL, no local memory) and K3-K6's ptxas
+     lines those of K3_K6_PTXAS);
   2. hold each kernel against its plain PyTorch version on the card at the
-     main paths' shapes, edge cases included, bit-exact, and time both:
+     main paths' shapes, edge cases included, bit-exact, and time both.
+     K1 and K2 (add, sub) first (check_field_kernels): all four fields at
+     ragged n (FIELD_RAGGED_N) with edge values first and last and
+     one-element operands; every stage's strided and broadcast views of
+     the NTT at 2^21 and 2^23 (a leading batch of 4), none copied; one
+     2^21 NTT with no operand copied; three layouts the kernels cannot
+     read in place, each copied once and counted; their times at a middle
+     NTT stage's views and the host split of one call at n = 8192.  Then
      the k=13 path's (n = 8192 field elements and points; the fixed-base
      bucket stream of 16 * 8192 pairs), the k=21 path's (field ops over
      2^21 rows; padd over 32768 lanes; a variable-base pass of 2 * 2^21
@@ -104,7 +113,9 @@ Phases:
  13. the card's name and power limit, and the kernels' line.
 
 Every path is driven with the launch counts set to 0 just before it and
-read just after (the CLI's children excepted: their counts are theirs).
+read just after (the CLI's children excepted: their counts are theirs),
+and with them K1's and K2's operand copies; the profiled proves give
+PyTorch's direct_copy launches and device ms.
 
 Phase 2's per-call times come from CUDA events over repeated calls and
 include the host's launch path; the device time per launch comes from
@@ -409,26 +420,271 @@ def shape_result(results, name: str, tag: str, **r) -> dict:
     return r
 
 
-def time_field_kernels(results, tag: str, F, a, b, errs):
-    """K1 and K2 (add) timed on a, b: call, device and plain times."""
+def time_field_kernels(results, tag: str, F, a, b, errs, k2=None):
+    """K1 on a, b and K2 (add) on k2 (default a, b), timed: call, device
+    and plain times.  The bound's bytes count each operand's own rows (a
+    broadcast operand's once) and the n rows written."""
     from zksnap_tpu_torch.fields import pallas_mont as pm
 
-    n = a.shape[0]
-    for name, fn, plain, ops, sym in (
-            ("K1", lambda: pm.mont_mul(a, b, F.p),
+    c, d = k2 if k2 is not None else (a, b)
+    for name, (x, y), fn, plain, ops, sym in (
+            ("K1", (a, b), lambda: pm.mont_mul(a, b, F.p),
              lambda: pm.mont_mul_plain(a, b, F.p), MUL_OPS, "mont_mul_kernel"),
-            ("K2", lambda: pm.mont_addsub(a, b, F.p, "add"),
-             lambda: pm.mont_addsub_plain(a, b, F.p, "add"), ADD_OPS,
+            ("K2", (c, d), lambda: pm.mont_addsub(c, d, F.p, "add"),
+             lambda: pm.mont_addsub_plain(c, d, F.p, "add"), ADD_OPS,
              "mont_addsub_kernel")):
+        n = torch.broadcast_shapes(x.shape, y.shape)[:-1].numel()
         r = shape_result(
             results, name, tag, n=n, max_abs_err=errs[name],
             ms=cuda_ms(fn, 200 if n <= 8192 else 20),
             plain_ms=cuda_ms(plain, 5 if n <= 8192 else 1),
             device_ms=kernel_device_ms(fn, sym),
-            **bound(n * ops, n * 3 * ROW))
+            **bound(n * ops, (x.numel() + y.numel()) // 16 * ROW + n * ROW))
         log(f"{name} bit-exact ({tag}, n={n}): kernel {r['ms']:.4f} ms a call "
             f"({fmt_ms(r['device_ms'])} on the device), plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4g} ms")
+
+
+# -- K1 and K2: the field kernels ----------------------------------------------
+
+FIELD_KERNELS = ("mont_mul_kernel", "mont_addsub_kernel")
+# n of K1's and K2's ragged check: one element, less than a warp, each side
+# of the k=13 path's 8192 and one past the k=21 path's 2^21
+FIELD_RAGGED_N = (1, 31, 8191, 8192, (1 << 21) + 1)
+
+# K3-K6's ptxas lines, (registers, stack frame bytes), as the build before
+# K1's redesign gave them; moving the inlined product into
+# field_inline.cuh must leave them as they were
+K3_K6_PTXAS = {
+    "_Z12point_kernelILi0ELi1EEvPKiS1_S1_S1_S1_S1_PiS2_S2_xi7Modulus": (142, 840),
+    "_Z12point_kernelILi1ELi1EEvPKiS1_S1_S1_S1_S1_PiS2_S2_xi7Modulus": (150, 744),
+    "_Z12point_kernelILi2ELi1EEvPKiS1_S1_S1_S1_S1_PiS2_S2_xi7Modulus": (84, 296),
+    "_Z12point_kernelILi3ELi2EEvPKiS1_S1_S1_S1_S1_PiS2_S2_xi7Modulus": (113, 0),
+    "_Z12point_kernelILi4ELi2EEvPKiS1_S1_S1_S1_S1_PiS2_S2_xi7Modulus": (140, 0),
+    "_Z12point_kernelILi5ELi2EEvPKiS1_S1_S1_S1_S1_PiS2_S2_xi7Modulus": (80, 0),
+    "_Z18bucket_scan_kernelILb0EEvPKhPKiS3_S3_PiS4_S4_xxi7Modulus": (198, 744),
+    "_Z18bucket_scan_kernelILb1EEvPKhPKiS3_S3_PiS4_S4_xxi7Modulus": (252, 0),
+    "_Z25suffix_chunk_total_kernelILb0EEvPKiS1_S1_PiS2_S2_xii7Modulus": (228, 840),
+    "_Z25suffix_chunk_total_kernelILb1EEvPKiS1_S1_PiS2_S2_xii7Modulus": (255, 0),
+    "_Z19suffix_carry_kernelILb0EEvPKiS1_S1_PiS2_S2_S2_S2_S2_ii7Modulus": (152, 1128),
+    "_Z19suffix_carry_kernelILb1EEvPKiS1_S1_PiS2_S2_S2_S2_S2_ii7Modulus": (240, 0),
+    "_Z19suffix_chunk_kernelILb0ELb0EEvPKiS1_S1_S1_S1_S1_S1_S1_S1_iPiS2_S2_S2_S2_S2_xii7Modulus": (198, 936),
+    "_Z19suffix_chunk_kernelILb0ELb1EEvPKiS1_S1_S1_S1_S1_S1_S1_S1_iPiS2_S2_S2_S2_S2_xii7Modulus": (186, 1032),
+    "_Z19suffix_chunk_kernelILb1ELb0EEvPKiS1_S1_S1_S1_S1_S1_S1_S1_iPiS2_S2_S2_S2_S2_xii7Modulus": (244, 0),
+    "_Z19suffix_chunk_kernelILb1ELb1EEvPKiS1_S1_S1_S1_S1_S1_S1_S1_iPiS2_S2_S2_S2_S2_xii7Modulus": (252, 0),
+    "_Z18ladder_tree_kernelILb0ELi1EEvPKiS1_S1_PiS2_S2_iii7Modulus": (132, 840),
+    "_Z18ladder_tree_kernelILb1ELi4EEvPKiS1_S1_PiS2_S2_iii7Modulus": (112, 0),
+}
+
+
+def field_kernel_report(ptxas: dict, sass: dict) -> dict:
+    """{kernel: registers, stack frame, CALLs, LDL/STL and instructions}
+    for K1's and K2's kernels (ptxas_entries, kernel_sass: its own code
+    and every subroutine)."""
+    out = {}
+    for name, v in sass.items():
+        if not any(f in name for f in FIELD_KERNELS):
+            continue
+        subs = v["subroutines"].values()
+        out[name] = {"registers": ptxas.get(name, {}).get("registers"),
+                     "stack_bytes": ptxas.get(name, {}).get("stack_bytes"),
+                     **{key: sum(s[key] for s in subs)
+                        for key in ("CALL", "LDL/STL", "IMAD*", "all")}}
+    return out
+
+
+def require_field_kernels(report: dict, ptxas: dict):
+    """K1's kernel inlined (a 0-byte stack frame, no CALL, no local
+    memory) and K3-K6's ptxas lines those of K3_K6_PTXAS."""
+    muls = {k: r for k, r in report.items() if "mont_mul_kernel" in k}
+    require(len(muls) == 1 and all(
+        r["stack_bytes"] == 0 and r["CALL"] == 0 and r["LDL/STL"] == 0
+        for r in muls.values()), ("K1 not inlined", muls))
+    got = {k: (ptxas.get(k, {}).get("registers"),
+               ptxas.get(k, {}).get("stack_bytes")) for k in K3_K6_PTXAS}
+    require(got == K3_K6_PTXAS, ("K3-K6 ptxas lines changed",
+                                 {k: (v, K3_K6_PTXAS[k]) for k, v in got.items()
+                                  if v != K3_K6_PTXAS[k]}))
+
+
+def ntt_stage_operands(x, k: int, s: int, twiddles):
+    """(u, the odd rows, w[None]) of stage s of `_ntt_impl` over x
+    [..., 2^k, 16]: K2's strided `xb[..., 0, :, :]`, K1's strided
+    `xb[..., 1, :, :]` and broadcast `w[None]`."""
+    n, m = 1 << k, 1 << s
+    xb = x.reshape(*x.shape[:-2], n >> (s + 1), 2, m, 16)
+    w = twiddles[:: (n // 2) // m] if m > 1 else twiddles[:1]
+    return xb[..., 0, :, :], xb[..., 1, :, :], w[None, :, :]
+
+
+def host_ms(fn, reps: int) -> float:
+    """Host milliseconds a call of fn over `reps` calls (perf_counter),
+    after 100 calls of warm-up; the device is synchronised outside the
+    timed loop."""
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def field_host_split(a, b, p: int, mode, reps: int) -> dict:
+    """{piece: host ms a call} of one K1 (mode None) or K2 (mode "add" or
+    "sub") call on a, b: the whole call and each piece of it alone (the
+    two operands' descriptors, `torch.empty`, `kernels.on_device`'s
+    enter and exit, the launch geometry, the ctypes call with its
+    arguments ready)."""
+    from zksnap_tpu_torch import kernels
+    from zksnap_tpu_torch.fields import pallas_mont as pm
+
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    n = shape[:-1].numel()
+    wrapper = pm.mont_mul if mode is None else pm.mont_addsub
+    out = torch.empty((n, 16), dtype=torch.int32, device=a.device)
+    ra, _ = pm.operand_rows(a, shape, n, wrapper)
+    rb, _ = pm.operand_rows(b, shape, n, wrapper)
+    sms = kernels.sm_count(a.device.index)
+    threads, blocks = pm.launch_geometry(n, sms)
+    lib, mod = kernels.library(), kernels.mod_ptr(p)
+    with kernels.on_device(a, b) as stream:
+        pass
+    if mode is None:
+        call = lambda: pm.mont_mul(a, b, p)  # noqa: E731
+        launch = lambda: lib.zk_mont_mul(  # noqa: E731
+            *ra, *rb, out.data_ptr(), n, threads, blocks, mod, stream)
+    else:
+        m = 0 if mode == "add" else 1
+        call = lambda: pm.mont_addsub(a, b, p, mode)  # noqa: E731
+        launch = lambda: lib.zk_mont_addsub(  # noqa: E731
+            *ra, *rb, out.data_ptr(), n, m, threads, blocks, mod, stream)
+
+    def on_device():
+        with kernels.on_device(a, b):
+            pass
+
+    return {
+        "call": host_ms(call, reps),
+        "operand_rows x2": host_ms(lambda: (
+            pm.operand_rows(a, shape, n, wrapper),
+            pm.operand_rows(b, shape, n, wrapper)), reps),
+        "torch.empty": host_ms(lambda: torch.empty(
+            (n, 16), dtype=torch.int32, device=a.device), reps),
+        "on_device": host_ms(on_device, reps),
+        "launch_geometry": host_ms(lambda: pm.launch_geometry(
+            n, kernels.sm_count(a.device.index)), reps),
+        "ctypes call": host_ms(launch, reps),
+    }
+
+
+def copy_counts() -> dict:
+    from zksnap_tpu_torch.fields import pallas_mont as pm
+
+    return {"K1": pm.mont_mul.copies, "K2": pm.mont_addsub.copies}
+
+
+def check_field_kernels(dev, rng, results):
+    """K1 and K2 (add and sub) bit-exact against their plain versions:
+    every field, edge values first and last, at each n of FIELD_RAGGED_N
+    and with a one-element operand on either side; on every stage's
+    views of the NTT at 2^21 and at 2^23 (a leading batch of 4 x 2^21),
+    none of them copied; one forward 2^21 NTT with no copy; and three
+    layouts the kernels cannot read in place (limbs not adjacent, rows
+    not 16-byte aligned, three levels of strides), each copied once and
+    counted.  Then the times at a middle NTT stage's views and the host
+    split of one call at n = 8192."""
+    from zksnap_tpu_torch.fields import (bn254_fq, bn254_fr, secp256k1_fp,
+                                         secp256k1_fq)
+    from zksnap_tpu_torch.fields import pallas_mont as pm
+    from zksnap_tpu_torch.poly.domain import domain
+    from zksnap_tpu_torch.poly.ntt import ntt
+
+    gen = torch.Generator().manual_seed(rng.randrange(1 << 31))
+    errs = {"K1": 0, "K2": 0}
+
+    def held(a, b, p, what):
+        got = [pm.mont_mul(a, b, p)] + [pm.mont_addsub(a, b, p, mode)
+                                        for mode in ("add", "sub")]
+        want = [pm.mont_mul_plain(a, b, p)] + [
+            pm.mont_addsub_plain(a, b, p, mode) for mode in ("add", "sub")]
+        e1, e2 = max_abs_err(got[:1], want[:1]), max_abs_err(got[1:], want[1:])
+        require(e1 == 0 and e2 == 0, ("K1, K2", what, e1, e2))
+        return got[0]
+
+    copies0 = copy_counts()
+    for F in (bn254_fr(), bn254_fq(), secp256k1_fp(), secp256k1_fq()):
+        a, b = field_inputs(F, 8192, rng, dev)
+        for n in FIELD_RAGGED_N:
+            idx = torch.randint(0, 8192, (n,), generator=gen)
+            edge = torch.arange(min(7, n))
+            idx[:len(edge)] = edge
+            idx[n - len(edge):] = edge
+            idx = idx.to(dev)
+            held(a[idx], b[idx], F.p, (F.name, n))
+        held(a, b[3], F.p, (F.name, "one-element b"))
+        held(b[5], a, F.p, (F.name, "one-element a"))
+    F = bn254_fr()
+    for tag, lead, k in (("2^21", (), 21), ("2^23", (4,), 21)):
+        x = random_canonical((1 << k) * (lead[0] if lead else 1),
+                             20261022 + len(lead), dev).reshape(
+                                 *lead, 1 << k, 16)
+        tw = domain(k).twiddles(dev)
+        for s in range(k):
+            u, xa, wb = ntt_stage_operands(x, k, s, tw)
+            t = held(xa, wb, F.p, ("NTT view", tag, s))
+            held(u, t, F.p, ("NTT view, K2's", tag, s))
+        del x
+    require(copy_counts() == copies0, ("field operands copied",
+                                       copies0, copy_counts()))
+    x = random_canonical(1 << 21, 20261024, dev)
+    ntt(21).forward(x)
+    torch.cuda.synchronize()
+    require(copy_counts() == copies0, ("an NTT's operands copied",
+                                       copies0, copy_counts()))
+    results["ntt_2p21"] = {"copies": {k: v - copies0[k] for k, v in
+                                      copy_counts().items()},
+                           "ms": cuda_ms(lambda: ntt(21).forward(x), 5)}
+
+    a, b = field_inputs(F, 8192, rng, dev)
+    flat = torch.zeros(8192 * 16 + 2, dtype=torch.int32, device=dev)
+    misaligned = flat[2:].view(8192, 16)
+    misaligned.copy_(a)
+    cube = random_canonical(4 * 8 * 2 * 128, 20261025, dev).reshape(
+        4, 8, 2, 128, 16)
+    for what, v, w in (("limbs not adjacent", a.t().contiguous().t(), b),
+                       ("not 16-byte aligned", misaligned, b),
+                       ("three levels", cube[:, ::3, 1],
+                        b[:4 * 3 * 128].reshape(4, 3, 128, 16))):
+        before = copy_counts()
+        held(v, w, F.p, ("refused layout", what))
+        require(copy_counts() == {k: c + (1 if k == "K1" else 2)
+                                  for k, c in before.items()},
+                ("refused layout not copied once a call", what, before,
+                 copy_counts()))
+    results["field_checks"] = {
+        "ragged_n": list(FIELD_RAGGED_N), "ntt_views": ["2^21", "2^23"],
+        "refused_layouts": 3, "max_abs_err": 0}
+    log(f"K1, K2 (add, sub) bit-exact: 4 fields at n = {list(FIELD_RAGGED_N)}"
+        " and one-element operands; every stage's views of the NTT at 2^21 "
+        "and 2^23 (4 x 2^21) with no copy; one 2^21 NTT with no copy "
+        f"({results['ntt_2p21']['ms']:.3f} ms); three refused layouts, each "
+        "copied once and counted")
+
+    x = random_canonical(1 << 21, 20261026, dev)
+    u, xa, wb = ntt_stage_operands(x, 21, 10, domain(21).twiddles(dev))
+    t = pm.mont_mul(xa, wb, F.p)
+    time_field_kernels(results, "ntt_view_2^21_s10", F, xa, wb, errs,
+                       k2=(u, t))
+    a, b = field_inputs(F, 8192, rng, dev)
+    results["host_split_ms"] = {
+        "K1 n=8192": field_host_split(a, b, F.p, None, 2000),
+        "K2 add n=8192": field_host_split(a, b, F.p, "add", 2000)}
+    log("host ms of one call at n = 8192: " + "; ".join(
+        f"{k}: " + ", ".join(f"{p} {v:.4f}" for p, v in r.items())
+        for k, r in results["host_split_ms"].items()))
 
 
 def check_bucket_scan(results, tag: str, Qa, ids, M: int):
@@ -509,29 +765,15 @@ def phase2(dev, rng, results):
     from zksnap_tpu_torch.curves import fused
     from zksnap_tpu_torch.curves.native import BN254_G1, SECP256K1
     from zksnap_tpu_torch.fields import bn254_fq, bn254_fr, secp256k1_fp
-    from zksnap_tpu_torch.fields import pallas_mont as pm
     from zksnap_tpu_torch.msm.pippenger import CUDA_LANES
 
     n = 8192
-    fields = [bn254_fr(), bn254_fq(), secp256k1_fp()]
 
-    # K1 / K2: every field, edge values, and a broadcast operand
-    k1_err = k2_err = 0
-    for F in fields:
-        a, b = field_inputs(F, n, rng, dev)
-        k1_err = max(k1_err, max_abs_err(
-            [pm.mont_mul(a, b, F.p), pm.mont_mul(a, b[3], F.p)],
-            [pm.mont_mul_plain(a, b, F.p), pm.mont_mul_plain(a, b[3], F.p)]))
-        for mode in ("add", "sub"):
-            k2_err = max(k2_err, max_abs_err(
-                [pm.mont_addsub(a, b, F.p, mode),
-                 pm.mont_addsub(b[5], a, F.p, mode)],
-                [pm.mont_addsub_plain(a, b, F.p, mode),
-                 pm.mont_addsub_plain(b[5], a, F.p, mode)]))
-    require(k1_err == 0 and k2_err == 0, (k1_err, k2_err))
+    # K1 / K2: every field, ragged n, NTT views, refused layouts
+    check_field_kernels(dev, rng, results)
     F = bn254_fr()
     a, b = field_inputs(F, n, rng, dev)
-    time_field_kernels(results, "k13", F, a, b, {"K1": k1_err, "K2": k2_err})
+    time_field_kernels(results, "k13", F, a, b, {"K1": 0, "K2": 0})
 
     # K3: six kinds; projective kinds on BN254, Jacobian on BN254 and secp
     k3_err = 0
@@ -1574,10 +1816,15 @@ def profile_prove(pk, inst, times):
         k: v for k, v in by_name.items()
         if any(s in k for s in SCAN_KERNELS + ("point_kernel",
                                                "ladder_tree_kernel"))}
+    copies = [v for k, v in by_name.items() if "direct_copy" in k]
+    times["direct_copy"] = [sum(v[0] for v in copies),
+                            sum(v[1] for v in copies)]
     log(f"voter k={pk.vk.k}: warm prove under the profiler {wall:.3f} s, device "
         f"busy {busy:.3f} s ({100 * busy / wall:.1f}%); "
         + ("; ".join(f"{k[:40]} x{v[0]} {v[1]:.1f} ms" for k, v in top)
            if top else "no device activity seen: not measured"))
+    log("  PyTorch's direct_copy kernels in it: {} launches, {:.1f} ms".format(
+        *times["direct_copy"]))
     log("  K3-K6 in it: " + "; ".join(
         f"{k.split('(')[0]} x{v[0]} {v[1]:.1f} ms"
         for k, v in times["k3_to_k6_device"].items()))
@@ -2411,7 +2658,15 @@ def main():
     all_ptxas = ptxas_entries(build_log)
     scan_ptxas = {k: v for k, v in all_ptxas.items()
                   if any(s in k for s in SCAN_KERNELS)}
-    sass = kernel_sass(lib_path, SCAN_KERNELS + INLINED_KERNELS)
+    sass = kernel_sass(lib_path, SCAN_KERNELS + INLINED_KERNELS
+                       + FIELD_KERNELS)
+    field_report = field_kernel_report(all_ptxas, sass)
+    for name, r in field_report.items():
+        log(f"  K1/K2 {name}: {r}")
+    require_field_kernels(field_report, all_ptxas)
+    log(f"  K3-K6: the {len(K3_K6_PTXAS)} ptxas lines (registers, stack "
+        "frames) of the parent's build, unchanged")
+    sass = {k: v for k, v in sass.items() if k not in field_report}
     scan_sass = {k: v for k, v in sass.items()
                  if any(s in k for s in SCAN_KERNELS)}
     for name, v in scan_sass.items():
@@ -2461,6 +2716,7 @@ def main():
         for fns in counters.values():
             for fn in fns:
                 fn.launches = 0
+        mont_mul.copies = mont_addsub.copies = 0
 
     def read_counts():
         return {name: sum(fn.launches for fn in fns)
@@ -2473,9 +2729,12 @@ def main():
         out = fn()
         torch.cuda.synchronize()
         counts = read_counts()
-        log(f"kernel launches over the {name} path: {counts}")
+        copies = copy_counts()
+        log(f"kernel launches over the {name} path: {counts}; operands "
+            f"copied: {copies}")
         require(all(counts[k] > 0 for k in needs), (name, counts))
         path_launches[name] = counts
+        path_copies[name] = copies
         return out
 
     work = tempfile.mkdtemp(prefix="chip_smoke_srs_",
@@ -2483,7 +2742,7 @@ def main():
     k13, k21, srs15, protocol, serving, cli_times = {}, {}, {}, {}, {}, {}
     lazy, poseidon, wrap = {}, {}, {}
     mesh7, mesh21, warm13 = {}, {}, {}
-    path_launches = {}
+    path_launches, path_copies = {}, {}
     k1_k4 = ("K1", "K2", "K3", "K4")
     try:
         phase3(dev, work)
@@ -2532,7 +2791,7 @@ def main():
         "K1": ("mont_mul", "zksnap_tpu_torch/csrc/mont.cu",
                "zksnap_tpu/fields/pallas_mont.py:87"),
         "K2": ("mont_addsub", "zksnap_tpu_torch/csrc/mont.cu",
-               "zksnap_tpu/fields/pallas_mont.py:170"),
+               "zksnap_tpu/fields/pallas_mont.py:171"),
         "K3": ("point", "zksnap_tpu_torch/csrc/point.cu",
                "zksnap_tpu/curves/fused.py:382"),
         "K4": ("bucket_scan", "zksnap_tpu_torch/csrc/bucket_scan.cu",
@@ -2572,6 +2831,11 @@ def main():
                    "wrapper_toy": wrap, "mesh_k7": mesh7,
                    "mesh_k21": mesh21, "warm_prove_k13": warm13,
                    "path_launches": path_launches,
+                   "path_copies": path_copies,
+                   "k1_k2_kernels": field_report,
+                   "field_checks": results["field_checks"],
+                   "ntt_2p21": results["ntt_2p21"],
+                   "field_host_split_ms": results["host_split_ms"],
                    "launches_k7_k8": launches_k7_k8, "ptxas": ptxas,
                    "k4_k5_ptxas": scan_ptxas, "k4_k5_sass": scan_sass,
                    "k3_k6_inlined": inline_report,

@@ -1,6 +1,6 @@
-"""Time the port's K3 (point formulas), K4 (bucket scan), K5 (weighted
-suffix) and K6 (ladder and tree) in other checkouts and this one on one
-card, in turns.
+"""Time the port's K1 and K2 (the field kernels), K3 (point formulas),
+K4 (bucket scan), K5 (weighted suffix) and K6 (ladder and tree) in other
+checkouts and this one on one card, in turns.
 
     python3 scripts/torch_kernel_ab.py OTHER_DIR [OTHER_DIR ...] [--out chiprun_out/ab.json]
 
@@ -10,11 +10,15 @@ build/parent`).  The turns run the others, this tree twice, then the
 others in reverse (one other: OTHER, this, this, OTHER).  Each turn is
 a process of its own with one checkout first on sys.path: it builds that
 checkout's kernels (kept in the checkout's own build directory), makes
-the same seeded inputs, calls the checkout's own `point`,
-`bucket_scan`, `weighted_suffix` and `ladder_tree`, and reads CUDA
-events over repeated calls and the profiler's device time of each
-kernel.  The shapes:
+the same seeded inputs, calls the checkout's own `mont_mul`,
+`mont_addsub`, `point`, `bucket_scan`, `weighted_suffix` and
+`ladder_tree`, and reads CUDA events over repeated calls and the
+profiler's device time of each kernel.  The shapes:
 
+  * K1, K2 (add): n = 8192 (the k=13 path's) and 2^21 (the k=21 path's)
+    contiguous rows, and stage 10 of a 2^21 NTT's views (K1 on
+    `xb[..., 1, :, :]` against `w[None]`, K2 on the even rows against
+    that product); one forward 2^21 NTT;
   * K3: padd at n = 32768 (the k=21 path's lane carries) and n = 8192
     (the k=13 path's), pmadd and pdbl at n = 8192, on chip_smoke.py's
     seeded points (identities, P == Q and P == -P among them);
@@ -27,16 +31,19 @@ kernel.  The shapes:
   * K6: (c, W) = (16, 16) (k=21) and (8, 32) (K=7), and its device ms a
     launch at c = 16 for W = 1, 2, 4, 8, 16 (0 to 240 dependent
     doublings), fitted by least squares as a + b c (W - 1): b is the
-    dependent chain's microseconds a doubling.
+    dependent chain's microseconds a doubling;
+  * the voter at k=13 (chip_smoke.py's phase 4 sets it up): three warm
+    proves timed, and one under the profiler (busy seconds, K1's, K2's
+    and PyTorch's direct_copy launches and device ms).
 
 Each turn also reads the kernels' ptxas lines and SASS mix
 (chip_smoke.py's `ptxas_entries` and `kernel_sass`; cuobjdump is
-required).  K3's, K4's and K6's outputs must be the same bytes in every
-turn; K5's the same points (X1 Z2 = X2 Z1 and Y1 Z2 = Y2 Z1), since a
-redesign may add in another order.  Device times are given for each
-kernel: ms a call and launches a call.  Prints one JSON line with every
-turn and the card's name and power limit; the whole record goes to
---out.
+required).  K1's to K4's and K6's outputs (and the NTT's) must be the
+same bytes in every turn; K5's the same points (X1 Z2 = X2 Z1 and Y1 Z2
+= Y2 Z1), since a redesign may add in another order.  Device times are
+given for each kernel: ms a call and launches a call.  Prints one JSON
+line with every turn and the card's name and power limit; the whole
+record goes to --out.
 """
 
 from __future__ import annotations
@@ -47,8 +54,10 @@ import importlib.util
 import json
 import os
 import random
+import shutil
 import subprocess
 import sys
+import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # K3's to K6's kernels, by the names of any checkout (K5 was one
@@ -56,6 +65,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCAN_NAMES = ("bucket_scan_kernel", "weighted_suffix_kernel",
               "suffix_chunk_total_kernel", "suffix_carry_kernel",
               "suffix_chunk_kernel")
+# every kernel whose device time a turn reports: K1-K6's and PyTorch's
+# copies
+KERNEL_NAMES = SCAN_NAMES + ("point_kernel", "ladder_tree_kernel",
+                             "mont_mul_kernel", "mont_addsub_kernel",
+                             "direct_copy")
 
 
 def _chip_smoke():
@@ -75,15 +89,19 @@ def turn(tree: str, k5_out: str) -> dict:
     from zksnap_tpu_torch import kernels
     from zksnap_tpu_torch.curves import fused
     from zksnap_tpu_torch.curves.native import BN254_G1
-    from zksnap_tpu_torch.fields import bn254_fq
+    from zksnap_tpu_torch.fields import bn254_fq, bn254_fr
+    from zksnap_tpu_torch.fields import pallas_mont as pm
+    from zksnap_tpu_torch.poly.domain import domain
+    from zksnap_tpu_torch.poly.ntt import ntt
 
     pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(
         fused.__file__)))
     assert os.path.samefile(pkg_root, tree), (pkg_root, tree)
     lib = kernels.build()
     kernels.library()
-    # K3's projective kinds and K6's RCB kernel beside them
-    names = SCAN_NAMES + cs.INLINED_KERNELS
+    # K3's projective kinds and K6's RCB kernel beside them, and K1, K2
+    names = SCAN_NAMES + cs.INLINED_KERNELS + ("mont_mul_kernel",
+                                               "mont_addsub_kernel")
     with open(os.path.join(os.path.dirname(lib),
                            f"build_{kernels.source_hash()}.log")) as f:
         ptxas = {k: v for k, v in cs.ptxas_entries(f.read()).items()
@@ -123,6 +141,17 @@ def turn(tree: str, k5_out: str) -> dict:
     for c, w in cs.LADDER_FIT[:-1]:
         wsums[c, w] = tuple(a[6 : 6 + w].contiguous() for a in rows)
 
+    # K1 and K2 at the k=13 and k=21 paths' shapes and on a middle NTT
+    # stage's views at 2^21 (xb[..., 1] against w[None]; K2 the even rows
+    # against that product), and one forward 2^21 NTT
+    Fr = bn254_fr()
+    fa, fb = cs.field_inputs(Fr, 8192, rng, dev)
+    pick21 = torch.randint(0, 8192, (1 << 21,), generator=gen).to(dev)
+    fa21, fb21 = fa[pick21], fb[pick21]
+    x21 = cs.random_canonical(1 << 21, 20261027, dev)
+    u, xa, wb = cs.ntt_stage_operands(x21, 21, 10, domain(21).twiddles(dev))
+    t = pm.mont_mul(xa, wb, Fr.p)
+
     def point(kind, ins):
         return lambda: fused.point(kind, ins, Fq.p, b3)
 
@@ -141,12 +170,23 @@ def turn(tree: str, k5_out: str) -> dict:
         "k5_k7": (lambda: fused.weighted_suffix(flat_s, B_s, Fq.p, b3), 50),
         "k6": (ladder(16, 16), 20),
         "k6_k7": (ladder(8, 32), 20)}
+    field_calls = {
+        "k1_n8192": (lambda: pm.mont_mul(fa, fb, Fr.p), 2000),
+        "k2_n8192": (lambda: pm.mont_addsub(fa, fb, Fr.p, "add"), 2000),
+        "k1_n2^21": (lambda: pm.mont_mul(fa21, fb21, Fr.p), 50),
+        "k2_n2^21": (lambda: pm.mont_addsub(fa21, fb21, Fr.p, "add"), 50),
+        "k1_ntt_view_s10": (lambda: pm.mont_mul(xa, wb, Fr.p), 50),
+        "k2_ntt_view_s10": (lambda: pm.mont_addsub(u, t, Fr.p, "add"), 50)}
+    calls.update(field_calls)
+    calls["ntt_2^21"] = (lambda: ntt(21).forward(x21), 10)
     out = {"tree": tree, "ptxas": ptxas, "sass": sass}
     for tag, keys in (("k3", [k for k in calls if k.startswith("k3")]),
-                      ("k4", ("k4", "k4_k13"))):
+                      ("k4", ("k4", "k4_k13")),
+                      ("k1_k2", list(field_calls) + ["ntt_2^21"])):
         h = hashlib.sha256()
         for key in keys:
-            for a in calls[key][0]():
+            got = calls[key][0]()
+            for a in (got if isinstance(got, (tuple, list)) else [got]):
                 h.update(a.cpu().numpy().tobytes())
         out[f"{tag}_sha256"] = h.hexdigest()
     h = hashlib.sha256()
@@ -162,8 +202,27 @@ def turn(tree: str, k5_out: str) -> dict:
         # each kernel's device ms a call and launches a call
         out[f"{key}_device_ms"] = {
             k: [v[1] / reps, v[0] / reps] for k, v in by.items()
-            if any(n in k for n in SCAN_NAMES + ("point_kernel",
-                                                 "ladder_tree_kernel"))}
+            if any(n in k for n in KERNEL_NAMES)}
+    # one warm voter prove at k=13 (chip_smoke.py's phase 4 sets it up):
+    # three timed, one under the profiler
+    work = tempfile.mkdtemp(prefix="ab_k13_", dir=os.path.join(ROOT, "build"))
+    try:
+        pk, inst = cs.phase4(dev, work, {})
+        from zksnap_tpu_torch.prover.plonk import prove
+
+        out["prove_k13_s"] = [cs.synced(lambda: prove(pk, inst))[1]
+                              for _ in range(3)]
+        wall, by = cs.device_time(lambda: prove(pk, inst))
+        copies = [v for k, v in by.items() if "direct_copy" in k]
+        out["prove_k13_profiled"] = {
+            "wall_s": wall, "busy_s": sum(v[1] for v in by.values()) / 1e3,
+            "direct_copy": [sum(v[0] for v in copies),
+                            sum(v[1] for v in copies)],
+            **{name: [sum(v[0] for k, v in by.items() if name in k),
+                      sum(v[1] for k, v in by.items() if name in k)]
+               for name in ("mont_mul_kernel", "mont_addsub_kernel")}}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     # K4's device ms a launch against its steps a lane (M lanes, the
     # first M * K pairs of the k=21 stream): its fixed cost a launch
     # apart from its cost a step
@@ -236,7 +295,7 @@ def main(argv=None):
     k5 = [torch.load(os.path.join(work, f"k5_{i}.pt"))
           for i in range(len(order))]
     checks = {f"{k}_same_bytes": len({t[f"{k}_sha256"] for t in turns}) == 1
-              for k in ("k3", "k4", "k6")}
+              for k in ("k1_k2", "k3", "k4", "k6")}
     checks["k5_same_points"] = all(same_points(k5[0][j], k5[i][j])
                                    for i in range(1, len(order))
                                    for j in (0, 1))

@@ -5,8 +5,11 @@ takes [..., 16] int32 Montgomery limb tensors (broadcasting like the JAX
 `mont_mul_batch` / `mont_addsub_batch`) and dispatches on the tensor's
 device: a CUDA tensor launches the hand-written kernel in
 csrc/mont.cu, a CPU tensor runs the plain int64 version beside it.  Any
-other device raises.  `mont_mul.launches` / `mont_addsub.launches` count
-kernel launches.
+other device raises.  The kernels read each operand where it lies (a
+strided or broadcast view included, `operand_view`); an operand they
+cannot describe is copied to contiguous rows on the card first.
+`mont_mul.launches` / `mont_addsub.launches` count kernel launches,
+`mont_mul.copies` / `mont_addsub.copies` those copies.
 
 Both return canonical values in [0, p), like the TPU kernels.
 """
@@ -126,23 +129,83 @@ def mont_addsub_plain(a, b, p: int, mode: str):
     return out[:, :N_LIMBS].to(torch.int32).reshape(shape)
 
 
-def _operands(a, b):
-    """Broadcast two [..., 16] operands -> (a rows, b rows, row strides,
-    batch shape, n).  A one-element operand keeps stride 0 (the kernel
-    reads the same row for every element); others are expanded."""
-    shape = torch.broadcast_shapes(a.shape, b.shape)
-    batch = shape[:-1]
-    n = 1
-    for d in batch:
-        n *= int(d)
+MAX_ROWS = 1 << 31  # row indices and offsets the kernels hold in 32 bits
 
-    def rows(x):
-        if x.numel() == N_LIMBS:
-            return x.reshape(1, N_LIMBS).contiguous(), 0
-        return x.expand(shape).reshape(n, N_LIMBS).contiguous(), 1
 
-    (ar, sa), (br, sb) = rows(a), rows(b)
-    return ar, br, sa, sb, batch, n
+@functools.lru_cache(maxsize=1024)
+def launch_geometry(n: int, sms: int) -> tuple[int, int]:
+    """(threads a block, blocks) for n rows, one a thread, on a card of
+    `sms` SMs: 256 threads a block, halved (down to 32) while that leaves
+    fewer blocks than SMs, so that a small n still reaches every SM."""
+    threads = 256
+    while threads > 32 and -(-n // threads) < sms:
+        threads //= 2
+    return threads, -(-n // threads)
+
+
+@functools.lru_cache(maxsize=1024)
+def divider(d: int) -> tuple[int, int]:
+    """(magic, shift) for the kernels' division by an invariant d,
+    1 <= d < 2^31: (umulhi(i, magic) + i) >> shift == i // d for every
+    0 <= i < 2^31 (umulhi the high word of the 64-bit product)."""
+    shift = (d - 1).bit_length()  # the least s with 2^s >= d
+    return ((1 << 32) * ((1 << shift) - d)) // d + 1, shift
+
+
+def operand_view(x, shape):
+    """How the kernels read x broadcast to `shape` ([..., 16]) in place:
+    (inner, s_outer, s_inner), row i of the call at x.data_ptr() +
+    ((i // inner) * s_outer + (i % inner) * s_inner) rows; or None where
+    that cannot describe it (limbs not adjacent, a row stride that is
+    not whole rows, a pointer not 16-byte aligned, dimensions that do not
+    fold into two levels), and the wrapper copies."""
+    if x.dtype != torch.int32 or x.shape[-1] != N_LIMBS:
+        raise ValueError(f"field operand must be int32 [..., {N_LIMBS}], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if x.data_ptr() % 16:
+        return None
+    if x.is_contiguous() and x.shape == shape:
+        return (max(x.numel() // N_LIMBS, 1), 0, 1)
+    if x.stride(-1) != 1:
+        return None
+    lead = len(shape) - x.dim()
+    levels = []  # (size, stride in rows), outer to inner, sizes above 1
+    for d in range(len(shape) - 1):
+        size = int(shape[d])
+        if size == 1:
+            continue
+        xd = d - lead
+        stride = 0 if xd < 0 or x.shape[xd] == 1 else x.stride(xd)
+        if stride % N_LIMBS:
+            return None
+        stride //= N_LIMBS
+        if levels and levels[-1][1] == stride * size:
+            levels[-1] = (levels[-1][0] * size, stride)
+        else:
+            levels.append((size, stride))
+    if len(levels) > 2 or sum((s - 1) * st for s, st in levels) >= MAX_ROWS:
+        return None
+    if not levels:
+        return (1, 0, 0)
+    if len(levels) == 1:
+        return (levels[0][0], 0, levels[0][1])
+    return (levels[1][0], levels[0][1], levels[1][1])
+
+
+def operand_rows(x, shape, n: int, counter):
+    """The C entry's arguments for operand x of an n-row call (pointer,
+    inner, magic, shift, s_outer, s_inner) and the tensor they point
+    into.  Where operand_view cannot describe x, x is copied to fresh
+    contiguous rows on its device and `counter.copies` counts it."""
+    view = operand_view(x, shape)
+    if view is None:
+        x = (x.reshape(1, N_LIMBS) if x.numel() == N_LIMBS
+             else x.expand(shape).reshape(n, N_LIMBS)).clone(
+                 memory_format=torch.contiguous_format)
+        counter.copies += 1
+        view = (x.shape[0], 0, 1 if x.shape[0] > 1 else 0)
+    inner, s_outer, s_inner = view
+    return (x.data_ptr(), inner, *divider(inner), s_outer, s_inner), x
 
 
 def _device_kind(a, b) -> str:
@@ -153,45 +216,62 @@ def _device_kind(a, b) -> str:
     return a.device.type
 
 
-def mont_mul(a, b, p: int):
-    """Montgomery product over [..., 16] int32 tensors (kernel K1)."""
-    if _device_kind(a, b) == "cpu":
-        return mont_mul_plain(a, b, p)
+def _launch(fn, a, b, p: int, mode: int | None):
+    """K1 (mode None) or K2 (mode 0 add, 1 sub) over operands a, b on one
+    CUDA device (kernels.on_device raises otherwise), broadcast together;
+    `fn` is the wrapper, whose counts this bumps."""
     from .. import kernels
 
-    ar, br, sa, sb, batch, n = _operands(a, b)
-    out = torch.empty((n, N_LIMBS), dtype=torch.int32, device=a.device)
-    with kernels.on_device(ar, br, out) as stream:
-        err = kernels.library().zk_mont_mul(
-            kernels.rows(ar, n if sa else 1),
-            kernels.rows(br, n if sb else 1), kernels.rows(out, n), n, sa,
-            sb, kernels.mod_ptr(p), stream)
-    kernels.check(err, "zk_mont_mul")
-    mont_mul.launches += 1
-    return out.reshape(*batch, N_LIMBS)
+    shape = (a.shape if a.shape == b.shape
+             else torch.broadcast_shapes(a.shape, b.shape))
+    on = kernels.on_device(a, b)
+    if shape[-1] != N_LIMBS:
+        raise ValueError(f"field operands of shape {tuple(shape)}")
+    n = shape.numel() // N_LIMBS
+    if n >= MAX_ROWS:
+        raise ValueError(f"{n} rows: the field kernels take fewer than 2^31")
+    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    if n == 0:
+        return out
+    # a copied operand's tensor must stay referenced until the launch
+    ra, a_rows = operand_rows(a, shape, n, fn)
+    rb, b_rows = operand_rows(b, shape, n, fn)
+    threads, blocks = launch_geometry(n, kernels.sm_count(on.index))
+    lib = kernels.library()
+    with on as stream:
+        if mode is None:
+            err = lib.zk_mont_mul(*ra, *rb, out.data_ptr(), n, threads,
+                                  blocks, kernels.mod_ptr(p), stream)
+        else:
+            err = lib.zk_mont_addsub(*ra, *rb, out.data_ptr(), n, mode,
+                                     threads, blocks, kernels.mod_ptr(p),
+                                     stream)
+    kernels.check(err, "zk_mont_mul" if mode is None else "zk_mont_addsub")
+    fn.launches += 1
+    return out
+
+
+def mont_mul(a, b, p: int):
+    """Montgomery product over [..., 16] int32 tensors (kernel K1)."""
+    if a.is_cuda:
+        return _launch(mont_mul, a, b, p, None)
+    _device_kind(a, b)
+    return mont_mul_plain(a, b, p)
 
 
 mont_mul.launches = 0
+mont_mul.copies = 0
 
 
 def mont_addsub(a, b, p: int, mode: str):
     """(a + b) or (a - b) mod p over [..., 16] int32 tensors (kernel K2)."""
     if mode not in ("add", "sub"):
         raise ValueError(f"mode {mode!r}")
-    if _device_kind(a, b) == "cpu":
-        return mont_addsub_plain(a, b, p, mode)
-    from .. import kernels
-
-    ar, br, sa, sb, batch, n = _operands(a, b)
-    out = torch.empty((n, N_LIMBS), dtype=torch.int32, device=a.device)
-    with kernels.on_device(ar, br, out) as stream:
-        err = kernels.library().zk_mont_addsub(
-            kernels.rows(ar, n if sa else 1),
-            kernels.rows(br, n if sb else 1), kernels.rows(out, n), n, sa,
-            sb, 0 if mode == "add" else 1, kernels.mod_ptr(p), stream)
-    kernels.check(err, "zk_mont_addsub")
-    mont_addsub.launches += 1
-    return out.reshape(*batch, N_LIMBS)
+    if a.is_cuda:
+        return _launch(mont_addsub, a, b, p, 0 if mode == "add" else 1)
+    _device_kind(a, b)
+    return mont_addsub_plain(a, b, p, mode)
 
 
 mont_addsub.launches = 0
+mont_addsub.copies = 0

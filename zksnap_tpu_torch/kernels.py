@@ -15,7 +15,6 @@ a machine without `nvcc` never reaches `library()`.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import hashlib
@@ -27,7 +26,8 @@ CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 SOURCES = ("mont.cu", "point.cu", "bucket_scan.cu", "reduce.cu",
            "pallas_point.cu", "exp_rates.cu", "exp_mul_variants.cu",
            "exp_mul_mxu.cu")
-HEADERS = ("field.cuh", "point.cuh", "point_inline.cuh", "mont16.cuh")
+HEADERS = ("field.cuh", "field_inline.cuh", "point.cuh", "point_inline.cuh",
+           "mont16.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(__file__), "..", "build",
                          "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -36,9 +36,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
+_U = ctypes.c_uint
+_ROWS = [_P] + [_U] * 5  # an operand's rows: base, inner, magic, shift, strides
 _SIGNATURES = {
-    "zk_mont_mul": [_P, _P, _P, _LL, _LL, _LL, _P, _P],
-    "zk_mont_addsub": [_P, _P, _P, _LL, _LL, _LL, _I, _P, _P],
+    "zk_mont_mul": _ROWS * 2 + [_P, _U, _I, _I, _P, _P],
+    "zk_mont_addsub": _ROWS * 2 + [_P, _U, _I, _I, _I, _P, _P],
     "zk_point": [_I] + [_P] * 9 + [_LL, _I, _I, _P, _P],
     "zk_bucket_scan": [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P, _P],
     "zk_weighted_suffix": [_P] * 7 + [_LL, _LL] + [_I] * 5 + [_P, _P],
@@ -166,25 +168,45 @@ def mod16_ptr(p: int) -> int:
     return ctypes.addressof(mod16_words(p))
 
 
-@contextlib.contextmanager
-def on_device(*tensors):
-    """Make the device of `tensors` (one CUDA device, or this raises) the
-    current one for the block, and yield the pointer of its current
-    stream: the C entries launch on the thread's current device, so a
-    kernel for a tensor on cuda:1 must be launched under cuda:1, on a
-    stream of cuda:1."""
-    import torch
+class on_device:
+    """`with on_device(*tensors) as stream:` makes the device of `tensors`
+    (one CUDA device, or this raises) the current one for the block and
+    gives the pointer of its current stream: the C entries launch on the
+    thread's current device, so a kernel for a tensor on cuda:1 must be
+    launched under cuda:1, on a stream of cuda:1.  Where that device is
+    current already, nothing is switched.  (torch.cuda.device and
+    torch.cuda.current_stream do the same through Python objects, which
+    cost a field kernel's launch more than its device time at n = 8192.)"""
 
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"kernel operands on {len(devs)} devices: "
-                         f"{sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type != "cuda":
-        raise ValueError(f"kernel operands must be on a CUDA device, got "
-                         f"{dev}")
-    with torch.cuda.device(dev):
-        yield torch.cuda.current_stream(dev).cuda_stream
+    __slots__ = ("index", "prev")
+
+    def __init__(self, *tensors):
+        devs = {t.device for t in tensors}
+        if len(devs) != 1:
+            raise ValueError(f"kernel operands on {len(devs)} devices: "
+                             f"{sorted(map(str, devs))}")
+        dev = devs.pop()
+        if dev.type != "cuda":
+            raise ValueError(f"kernel operands must be on a CUDA device, "
+                             f"got {dev}")
+        self.index = dev.index
+        self.prev = None
+
+    def __enter__(self) -> int:
+        import torch
+
+        cur = torch._C._cuda_getDevice()
+        if cur != self.index:
+            torch._C._cuda_setDevice(self.index)
+            self.prev = cur
+        return torch._C._cuda_getCurrentRawStream(self.index)
+
+    def __exit__(self, *exc):
+        if self.prev is not None:
+            import torch
+
+            torch._C._cuda_setDevice(self.prev)
+        return False
 
 
 def rows(t, n: int) -> int:
