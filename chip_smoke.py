@@ -8,10 +8,11 @@ Phases:
      each source, all started together, timed; ptxas registers and
      spills logged; the main loop of each K11 chain from cuobjdump -sass;
      K4's and K5's kernels' registers, stack frames and SASS instruction
-     mix; K3's projective kinds and K6's RCB kernel required inlined: a
-     0-byte stack frame and no CALL in their SASS; K1's kernels required
-     inlined too (no frame, no CALL, no local memory) and K3-K6's ptxas
-     lines those of K3_K6_PTXAS);
+     mix; K3's six kinds and K6's RCB kernel required inlined: a 0-byte
+     stack frame and no CALL and no LDL/STL in their SASS; K1's kernels
+     required inlined too (no frame, no CALL, no local memory) and the
+     ptxas lines of K3's projective kinds and K4-K6 those of
+     K3_K6_PTXAS);
   2. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes, edge cases included, bit-exact, and time both.
      K1 and K2 (add, sub) first (check_field_kernels): all four fields at
@@ -27,16 +28,17 @@ Phases:
      signed-digit pairs, M = 32768 lanes x K = 128 steps; the fused
      reduction at W = 16 windows of B = 2^15 buckets and c = 16) and
      K=7's fused reduction (W = 32 windows of 128, c = 8), K4's and K5's
-     Jacobian branches (b3 = 0) at the k=13 and K=7 shapes; K3's
-     projective kinds at ragged n (RAGGED_N) with identities, P == Q and
-     P == -P first and last; K6 at W = 1 and 2 too, and its device time
-     a launch at c = 16 over W = 1 to 16 fitted as a + b c (W - 1), b
-     the microseconds a dependent doubling; then K7 and
-     K8 through their own entry points (point_add_batch,
-     point_dbl_batch, point_add_staged; the only path that runs them),
+     Jacobian branches (b3 = 0) at the k=13 and K=7 shapes; K3's six
+     kinds at ragged n (RAGGED_N) with identities, P == Q and P == -P
+     first and last; K6 at W = 1 and 2 too, and its device time a launch
+     at c = 16 over W = 1 to 16 fitted as a + b c (W - 1), b the
+     microseconds a dependent doubling; then K7 and K8 through their own
+     entry points (point_add_batch, point_dbl_batch, point_add_staged),
+     which launch K3's Jacobian kinds as the SRS's double-and-add does,
      once each at n = 2^20 with the counts read, then against their plain
      versions at n = 2^20 and n = 32768, edge cases included, the staged
-     add against the fused one;
+     add against the fused one, K8's add also on a batch with P == Q on
+     every lane and on one with the edge cases inside every warp;
   2b. the experiments path (K9-K11): the `main` of each module of
      zksnap_tpu_torch/experiments at the scripts' default sizes
      (exp_vpu_rates: 16 x 2^14 lanes, chain 512, 64 products;
@@ -70,8 +72,9 @@ Phases:
      (each task timed) before keygen and the first prove, one without;
   6. the second path, with ZKSNAP_TPU_FUSED_REDUCE=1: the voter circuit
      with PLUME on at k=21 (its stats and instances against the frozen
-     JAX ones), SRS made on the card, keygen (vk shape against the frozen
-     one), a cold and a warm proof, verification, a tampered proof
+     JAX ones), SRS made on the card under the profiler (K3's Jacobian
+     launches and device time by kind), keygen (vk shape against the
+     frozen one), a cold and a warm proof, verification, a tampered proof
      rejected, the peak device memory of keygen and of a proof; the
      launch counts of K1-K6 over it, each required > 0; one more warm
      proof under torch.profiler (K3's to K6's kernels in it apart); then
@@ -125,7 +128,9 @@ bytes (inputs read once, outputs written once) at 3.35 TB/s; the point
 formulas (K3-K8) count their products on the IMAD pipe and their adds on
 the ALU pipe apart, and take the slowest of the two pipes and the issue.
 The kernels line gives K1-K6 at the k=21 path's shape, with that path's
-launches, K7, K8 at n = 2^20 with their own path's, and K9 (variant B),
+launches (K3's among them the SRS's Jacobian dbl and add), K7, K8 at
+n = 2^20 with their own path's (each of their launches is one of K3's
+point kernel, which K3's count takes too), and K9 (variant B),
 K10 (mxu), K11 (u32mul and i8dot) at the experiments' shapes with the
 experiments path's, which count every variant or kind that launches the
 one kernel (K9: A's launches are K1's; K11: the chains and the dots
@@ -182,6 +187,8 @@ PMADD = (11, 21)
 PDBL = (8, 13)
 JADD = (16, 13)  # add-2007-bl; P == Q adds a JDBL
 JDBL = (7, 14)
+# K3's kinds by their number (csrc/point.cuh PointKind)
+KIND_NAMES = ("add", "madd", "dbl", "padd", "pmadd", "pdbl")
 
 
 # The experiments' rates: the tensor cores' dense int8 and bf16 rates
@@ -452,13 +459,12 @@ FIELD_KERNELS = ("mont_mul_kernel", "mont_addsub_kernel")
 # of the k=13 path's 8192 and one past the k=21 path's 2^21
 FIELD_RAGGED_N = (1, 31, 8191, 8192, (1 << 21) + 1)
 
-# K3-K6's ptxas lines, (registers, stack frame bytes), as the build before
-# K1's redesign gave them; moving the inlined product into
-# field_inline.cuh must leave them as they were
+# K3's projective kinds' and K4-K6's ptxas lines, (registers, stack frame
+# bytes), as the builds since K1's redesign gave them: the Jacobian
+# formulas inlined beside them for K3's Jacobian kinds (held to no frame
+# and no local memory by require_inlined instead) must leave them as they
+# were
 K3_K6_PTXAS = {
-    "_Z12point_kernelILi0ELi1EEvPKiS1_S1_S1_S1_S1_PiS2_S2_xi7Modulus": (142, 840),
-    "_Z12point_kernelILi1ELi1EEvPKiS1_S1_S1_S1_S1_PiS2_S2_xi7Modulus": (150, 744),
-    "_Z12point_kernelILi2ELi1EEvPKiS1_S1_S1_S1_S1_PiS2_S2_xi7Modulus": (84, 296),
     "_Z12point_kernelILi3ELi2EEvPKiS1_S1_S1_S1_S1_PiS2_S2_xi7Modulus": (113, 0),
     "_Z12point_kernelILi4ELi2EEvPKiS1_S1_S1_S1_S1_PiS2_S2_xi7Modulus": (140, 0),
     "_Z12point_kernelILi5ELi2EEvPKiS1_S1_S1_S1_S1_PiS2_S2_xi7Modulus": (80, 0),
@@ -734,15 +740,19 @@ RAGGED_N = (1, 31, 8191, 8192, 32769, 32768)
 
 
 def check_point_ragged(dev, rng, results):
-    """K3's projective kinds bit-exact against their plain versions at
-    each n of RAGGED_N: rows drawn from 8192 seeded points, the edge rows
-    (identities, P == Q, P == -P) first and last."""
+    """K3's six kinds bit-exact against their plain versions at each n of
+    RAGGED_N: rows drawn from 8192 seeded points (projective for padd,
+    pmadd, pdbl, Jacobian for add, madd, dbl), the edge rows (identities,
+    P == Q, P == -P) first and last."""
     from zksnap_tpu_torch.curves import fused
     from zksnap_tpu_torch.curves.native import BN254_G1
     from zksnap_tpu_torch.fields import bn254_fq
 
     Fq, b3 = bn254_fq(), 3 * BN254_G1.b
     P, Qg, Qa = point_inputs(BN254_G1, Fq, 8192, rng, dev, False)
+    PJ, QgJ, QaJ = point_inputs(BN254_G1, Fq, 8192, rng, dev, True)
+    cases = (("padd", P + Qg, b3), ("pmadd", P + Qa, b3), ("pdbl", P, b3),
+             ("add", PJ + QgJ, 0), ("madd", PJ + QaJ, 0), ("dbl", PJ, 0))
     gen = torch.Generator().manual_seed(rng.randrange(1 << 31))
     for n in RAGGED_N:
         idx = torch.randint(0, 8192, (n,), generator=gen)
@@ -750,13 +760,13 @@ def check_point_ragged(dev, rng, results):
         idx[:len(edge)] = edge
         idx[n - len(edge):] = edge
         idx = idx.to(dev)
-        for kind, ins in (("padd", P + Qg), ("pmadd", P + Qa), ("pdbl", P)):
+        for kind, ins, kb3 in cases:
             args = [a[idx] for a in ins]
-            err = max_abs_err(fused.point(kind, args, Fq.p, b3),
-                              fused.point_plain(kind, args, Fq.p, b3))
+            err = max_abs_err(fused.point(kind, args, Fq.p, kb3),
+                              fused.point_plain(kind, args, Fq.p, kb3))
             require(err == 0, ("K3 ragged", kind, n, err))
     shape_result(results, "K3", "ragged", n=list(RAGGED_N), max_abs_err=0)
-    log(f"K3 padd, pmadd, pdbl bit-exact at ragged n = {list(RAGGED_N)}")
+    log(f"K3's six kinds bit-exact at ragged n = {list(RAGGED_N)}")
 
 
 def phase2(dev, rng, results):
@@ -1075,13 +1085,73 @@ def point_batch_inputs(n: int, rng, dev):
     return tuple(a[idx] for a in P), tuple(a[idx] for a in Q), same
 
 
+def same_point_batch(n: int, rng, dev):
+    """(P, Q) of n seeded BN254 points in Jacobian coordinates with P == Q
+    on every lane, each side with its own z: the complete add's worst
+    case, every lane taking the doubling fallback.  Rows drawn from 8192
+    seeded rows."""
+    from zksnap_tpu_torch.curves.native import BN254_G1, AffinePoint
+    from zksnap_tpu_torch.fields import bn254_fq
+
+    Fq, q = bn254_fq(), BN254_G1.p
+    g = AffinePoint.generator(BN254_G1)
+    pool = [rng.randrange(1, BN254_G1.n) * g for _ in range(48)]
+    pts = [pool[rng.randrange(len(pool))] for _ in range(8192)]
+
+    def encode():
+        rows = []
+        for pt in pts:
+            lam = rng.randrange(1, q)
+            rows.append((lam * lam * pt.x % q, pow(lam, 3, q) * pt.y % q, lam))
+        return tuple(Fq.to_mont([r[i] for r in rows], dev) for i in range(3))
+
+    P, Q = encode(), encode()
+    gen = torch.Generator().manual_seed(rng.randrange(1 << 31))
+    idx = torch.randint(0, 8192, (n,), generator=gen).to(dev)
+    return tuple(a[idx] for a in P), tuple(a[idx] for a in Q)
+
+
+# lanes of half a warp of K3's Jacobian kinds (one thread a point), and
+# how many of them warp_mixed_batch makes edge cases
+MIX_LANES = 16
+MIX_EDGES = 4
+
+
+def warp_mixed_batch(n: int, rng, dev):
+    """(P, Q, lanes where P == Q) of n seeded BN254 points in Jacobian
+    coordinates (n a multiple of MIX_LANES): in every MIX_LANES
+    consecutive lanes, MIX_EDGES lanes at random places take one of the
+    eight edge rows of point_inputs (identities, P == Q, P == -Q) and the
+    others ordinary rows, so that the doubling fallback and the identity
+    selects run in warps whose other lanes take the plain formula."""
+    from zksnap_tpu_torch.curves.native import BN254_G1
+    from zksnap_tpu_torch.fields import bn254_fq
+
+    Fq = bn254_fq()
+    P, Q, _ = point_inputs(BN254_G1, Fq, 8192, rng, dev, True)
+    gen = torch.Generator().manual_seed(rng.randrange(1 << 31))
+    warps = n // MIX_LANES
+    idx = torch.randint(8, 8192, (warps, MIX_LANES), generator=gen)
+    slots = torch.rand(warps, MIX_LANES, generator=gen).argsort(dim=1)
+    idx.scatter_(1, slots[:, :MIX_EDGES],
+                 torch.randint(0, 8, (warps, MIX_EDGES), generator=gen))
+    idx = idx.reshape(n).to(dev)
+    same = int(dbl_lanes(P, Q, Fq.p)[idx].sum())
+    return tuple(a[idx] for a in P), tuple(a[idx] for a in Q), same
+
+
 def phase_point_batch(dev, rng, results) -> dict:
     """K8 (point_add_batch, point_dbl_batch) and K7 (point_add_staged)
-    through their public entry points, the only path that runs them:
-    each called once at n = 2^20 with the counts set to 0 just before and
-    read just after (the kernels line's launches); then every form held
-    against its plain version at both shapes, staged against fused, and
-    timed.  Returns the launches of that one call of each."""
+    through their public entry points, which launch K3's Jacobian kinds
+    (the SRS's double-and-add launches the same kernels through K3's
+    `point`): each called once at n = 2^20 with the counts set to 0 just
+    before and read just after (the kernels line's launches; K3's count
+    takes each of them too); then every form held against its plain
+    version at both shapes, staged against fused, and timed, and K8's add
+    on a batch with P == Q on every lane (the doubling fallback in every
+    block) and on the warp-mixed edge batch.  Returns the launches of that
+    one call of each."""
+    from zksnap_tpu_torch.curves import fused
     from zksnap_tpu_torch.curves import pallas_point as pp
     from zksnap_tpu_torch.fields import bn254_fq
 
@@ -1090,60 +1160,77 @@ def phase_point_batch(dev, rng, results) -> dict:
     launches = None
     for tag, n in POINT_SHAPES:
         P, Q, same = point_batch_inputs(n, rng, dev)
+        S = same_point_batch(n, rng, dev)
+        E, F, e_same = warp_mixed_batch(n, rng, dev)
         # the function's own work: the add, and a dbl on the lanes where
-        # P == Q (the kernels double every lane; that is their cost)
+        # P == Q (the kernel doubles every lane of a block that holds one)
         add_work = [(n, JADD), (same, JDBL)]
-        forms = {  # name: (entry point, plain version, kernels, work, rows)
+        forms = {  # name: (entry point, plain version, work, rows)
             "add": (lambda: pp.point_add_batch(P, Q, p, n0),
                     lambda: pp.point_add_batch_plain(P, Q, p, n0),
-                    ("jac_add_kernel",), add_work, 9),
+                    add_work, 9),
             "dbl": (lambda: pp.point_dbl_batch(P, p, n0),
                     lambda: pp.point_dbl_batch_plain(P, p, n0),
-                    ("jac_dbl_kernel",), [(n, JDBL)], 6),
-            # the plain version and the bound are the add's: the split
-            # changes no value, and the intermediates are the kernel's own
-            # traffic, not the function's
+                    [(n, JDBL)], 6),
+            # the plain version and the bound are the add's: the TPU's
+            # split changes no value, and here it is one launch of the add
             "staged": (lambda: pp.point_add_staged(P, Q, p, n0),
                        lambda: pp.point_add_batch_plain(P, Q, p, n0),
-                       ("staged_add_a_kernel", "jac_dbl_kernel",
-                        "staged_add_b_kernel"), add_work, 9)}
+                       add_work, 9),
+            "add_p_eq_q": (lambda: pp.point_add_batch(*S, p, n0),
+                           lambda: pp.point_add_batch_plain(*S, p, n0),
+                           [(n, JADD), (n, JDBL)], 9),
+            "add_warp_mixed": (
+                lambda: pp.point_add_batch(E, F, p, n0),
+                lambda: pp.point_add_batch_plain(E, F, p, n0),
+                [(n, JADD), (e_same, JDBL)], 9)}
         if launches is None:
             for fn in (pp.point_add_batch, pp.point_dbl_batch,
-                       pp.point_add_staged):
+                       pp.point_add_staged, fused.point):
                 fn.launches = 0
-            got = {name: f[0]() for name, f in forms.items()}
+            got = {name: forms[name][0]() for name in ("add", "dbl",
+                                                       "staged")}
             torch.cuda.synchronize()
             launches = {"K7": pp.point_add_staged.launches,
                         "K8": pp.point_add_batch.launches
                         + pp.point_dbl_batch.launches}
             log(f"K7/K8 path (one call of each entry point, n={n}): "
-                f"launches {launches}")
-            require(min(launches.values()) > 0, launches)
+                f"launches {launches}, K3's point kernel "
+                f"{fused.point.launches}")
+            require(launches == {"K7": 1, "K8": 2}
+                    and fused.point.launches == 3,
+                    (launches, fused.point.launches))
+            got.update({name: forms[name][0]() for name in forms
+                        if name not in got})
         else:
             got = {name: f[0]() for name, f in forms.items()}
         require(max_abs_err(got["staged"], got["add"]) == 0,
                 ("K7 staged != K8 add", tag))
         rows = {}
-        for name, (fn, plain, syms, work, nrows) in forms.items():
+        for name, (fn, plain, work, nrows) in forms.items():
             want, plain_ms = timed(plain)
             err = max_abs_err(got[name], want)
             require(err == 0, ("K7/K8", name, tag, err))
             del want
             rows[name] = dict(n=n, max_abs_err=err, plain_ms=plain_ms,
                               ms=cuda_ms(fn, 20),
-                              device_ms=kernel_device_ms(fn, syms,
+                              device_ms=kernel_device_ms(fn, "point_kernel",
                                                          per_call=True),
                               **formula_bound(work, n * nrows * ROW))
             r = rows[name]
-            log(f"{'K7' if name == 'staged' else 'K8'} {name:6s} bit-exact "
+            log(f"{'K7' if name == 'staged' else 'K8'} {name:14s} bit-exact "
                 f"({tag}): {r['ms']:.4f} ms a call ({fmt_ms(r['device_ms'])}"
                 f" on the device), plain {r['plain_ms']:.4f} ms, bound "
                 f"{r['bound_ms']:.4g} ms ({r['bound_by']})")
         del got
         log(f"K7/K8 ({tag}): {same} of {n} lanes have P == Q (the add's "
-            "bound counts a dbl on those)")
+            f"bound counts a dbl on those); every lane in add_p_eq_q; "
+            f"{e_same} in add_warp_mixed, {MIX_EDGES} edge lanes in "
+            f"every {MIX_LANES}")
         shape_result(results, "K8", tag, **rows["add"], dbl=rows["dbl"],
-                     p_eq_q=same)
+                     p_eq_q=same, add_p_eq_q=rows["add_p_eq_q"],
+                     add_warp_mixed=dict(rows["add_warp_mixed"],
+                                         p_eq_q=e_same))
         shape_result(results, "K7", tag, **rows["staged"], p_eq_q=same)
     return launches
 
@@ -1286,18 +1373,21 @@ K5_KERNELS = ("suffix_chunk_total_kernel", "suffix_carry_kernel",
 SCAN_KERNELS = ("bucket_scan_kernel",) + K5_KERNELS
 
 
-# K3's projective kinds (padd, pmadd, pdbl) and K6's RCB kernel, by their
-# mangled names' prefixes: they must run inlined, with a 0-byte stack
-# frame and no CALL in their SASS
-INLINED_KERNELS = ("point_kernelILi3E", "point_kernelILi4E",
-                   "point_kernelILi5E", "ladder_tree_kernelILb1E")
+# K3's kinds (the Jacobian add, madd, dbl; padd, pmadd, pdbl) and K6's
+# RCB kernel, by their mangled names' prefixes: they must run inlined,
+# with a 0-byte stack frame and no CALL and no local memory access in
+# their SASS
+INLINED_KERNELS = ("point_kernelILi0E", "point_kernelILi1E",
+                   "point_kernelILi2E", "point_kernelILi3E",
+                   "point_kernelILi4E", "point_kernelILi5E",
+                   "ladder_tree_kernelILb1E")
 
 
 def inlined(ptxas: dict, sass: dict, fragments=INLINED_KERNELS) -> dict:
-    """{fragment: {"kernel", "registers", "stack_bytes", "calls"}} for the
-    one kernel whose name holds each fragment: its ptxas line
-    (ptxas_entries) and the CALLs in its SASS listing (kernel_sass: its
-    own code and every subroutine)."""
+    """{fragment: {"kernel", "registers", "stack_bytes", "calls",
+    "local"}} for the one kernel whose name holds each fragment: its
+    ptxas line (ptxas_entries) and the CALLs and LDL/STL in its SASS
+    listing (kernel_sass: its own code and every subroutine)."""
     out = {}
     for frag in fragments:
         names = [k for k in sass if frag in k]
@@ -1307,17 +1397,19 @@ def inlined(ptxas: dict, sass: dict, fragments=INLINED_KERNELS) -> dict:
         out[frag] = {"kernel": name,
                      "registers": ptxas[name].get("registers"),
                      "stack_bytes": ptxas[name].get("stack_bytes"),
-                     "calls": sum(s["CALL"] for s in
-                                  sass[name]["subroutines"].values())}
+                     **{key: sum(s[group] for s in
+                                 sass[name]["subroutines"].values())
+                        for key, group in (("calls", "CALL"),
+                                           ("local", "LDL/STL"))}}
     return out
 
 
 def require_inlined(report: dict):
-    """Each kernel of inlined()'s report has a 0-byte stack frame and no
-    CALL."""
+    """Each kernel of inlined()'s report has a 0-byte stack frame, no
+    CALL and no local memory access."""
     for frag, r in report.items():
-        require(r["stack_bytes"] == 0 and r["calls"] == 0,
-                ("not inlined", frag, r))
+        require(r["stack_bytes"] == 0 and r["calls"] == 0
+                and r["local"] == 0, ("not inlined", frag, r))
 
 
 def ptxas_entries(log_text: str) -> dict:
@@ -1699,6 +1791,30 @@ def phase4(dev, srs_dir, times):
     return pk, inst
 
 
+def srs_under_profiler(make):
+    """(make(), its wall seconds, K3's launches over it and the profiler's
+    [launches, device ms] of each kind of K3's kernel): a fresh SRS's
+    double-and-add is K3's Jacobian dbl and add, a launch each a scalar
+    bit and chunk of 2^20 points.  The profiler (device activity only)
+    adds its own overhead to the wall seconds."""
+    from zksnap_tpu_torch.curves.fused import point
+
+    got = []
+    before = point.launches
+    wall, by_name = device_time(lambda: got.append(make()))
+    kinds = {}
+    for name, (count, ms) in by_name.items():
+        m = re.search(r"point_kernel<(\d)", name)
+        if m:
+            c = kinds.setdefault(KIND_NAMES[int(m.group(1))], [0, 0.0])
+            c[0] += count
+            c[1] += ms
+    jac = {"launches": point.launches - before, "device_ms": kinds}
+    log(f"SRS: {wall:.3f} s under the profiler; K3 launches "
+        f"{jac['launches']}, by kind [launches, device ms]: {kinds}")
+    return got[0], wall, jac
+
+
 def phase_plume(dev, srs_dir, times):
     """The voter circuit with PLUME on at k=21, the reference's default
     voter at its full shape, with the fused reduction on."""
@@ -1729,10 +1845,8 @@ def phase_plume(dev, srs_dir, times):
     log(f"voter k={k} PLUME: {stats['advice_cells']} advice cells, stats and "
         "instances equal the frozen JAX ones")
 
-    t0 = time.time()
-    srs = gen_srs(k, cache_dir=srs_dir, device=dev)
-    torch.cuda.synchronize()
-    times["srs_s"] = time.time() - t0
+    srs, times["srs_s"], times["srs_jacobian"] = srs_under_profiler(
+        lambda: gen_srs(k, cache_dir=srs_dir, device=dev))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     pk = keygen(ctx, k, srs)
@@ -2665,7 +2779,7 @@ def main():
         log(f"  K1/K2 {name}: {r}")
     require_field_kernels(field_report, all_ptxas)
     log(f"  K3-K6: the {len(K3_K6_PTXAS)} ptxas lines (registers, stack "
-        "frames) of the parent's build, unchanged")
+        "frames) of K3's projective kinds and K4-K6, unchanged")
     sass = {k: v for k, v in sass.items() if k not in field_report}
     scan_sass = {k: v for k, v in sass.items()
                  if any(s in k for s in SCAN_KERNELS)}
@@ -2676,7 +2790,8 @@ def main():
     inline_report = inlined(all_ptxas, sass)
     for r in inline_report.values():
         log(f"  K3/K6 {r['kernel']}: {r['registers']} registers, "
-            f"{r['stack_bytes']}-byte stack frame, {r['calls']} CALL")
+            f"{r['stack_bytes']}-byte stack frame, {r['calls']} CALL, "
+            f"{r['local']} LDL/STL")
     require_inlined(inline_report)
 
     rng = random.Random(20261016)
@@ -2693,7 +2808,8 @@ def main():
     log(f"experiments phase: {exp_s:.1f} s")
     # the kernels line gives K1-K6 at the k=21 path's shape (their
     # launches are that path's), K7, K8 at n = 2^20 (their launches
-    # their own path's), K9-K11 at the experiments' default shapes (their
+    # their own path's, each a launch of K3's point kernel), K9-K11 at
+    # the experiments' default shapes (their
     # launches the experiments path's); the largest error is over every
     # shape of a kernel that is exact (bf16dot's relative error is held to
     # BF16_TOL instead)
@@ -2800,9 +2916,9 @@ def main():
                "zksnap_tpu/curves/fused.py:566"),
         "K6": ("ladder_tree", "zksnap_tpu_torch/csrc/reduce.cu",
                "zksnap_tpu/curves/fused.py:678"),
-        "K7": ("point_add_staged", "zksnap_tpu_torch/csrc/pallas_point.cu",
+        "K7": ("point_add_staged", "zksnap_tpu_torch/csrc/point.cu",
                "zksnap_tpu/curves/pallas_point.py:280"),
-        "K8": ("point_add_batch", "zksnap_tpu_torch/csrc/pallas_point.cu",
+        "K8": ("point_add_batch", "zksnap_tpu_torch/csrc/point.cu",
                "zksnap_tpu/curves/pallas_point.py:322"),
         "K9": ("mul_limb_major (variant B)",
                "zksnap_tpu_torch/csrc/exp_mul_variants.cu",

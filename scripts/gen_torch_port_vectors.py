@@ -72,13 +72,17 @@ PyTorch port (zksnap_tpu_torch) is held to without rerunning the JAX prover.
       `four_step_input_perm`: the sha256 of each output's uint32 limbs in
       the transform's own (permuted) layout; the input is 512 values from
       `random.Random(FOUR_STEP_SEED).randrange(p)` in Montgomery form
-      (each shape's shard_map compiles for about 14 s).
+      (each shape's shard_map compiles for about 14 s);
+  (p) `srs_k7_arrays`: the six arrays of (b) themselves, each as base64
+      of its zlib-compressed little-endian uint32 bytes, with their
+      sha256 (the port's delivery tests start from them; the port's own
+      K=7 SRS generation is held to (b) by tests/test_torch_prover.py).
 
 Run on the CPU:  python scripts/gen_torch_port_vectors.py [part ...]
 with parts among k7, voter_k13, msm, reduce, ladder, plume, pallas_point,
-state_k15, state_k13, srs_file, exp_mul, wrapper_toy, poseidon, four_step
-(all by default); the parts named replace their entries in the existing
-file.
+state_k15, state_k13, srs_file, exp_mul, wrapper_toy, poseidon, four_step,
+srs_k7_arrays (all by default); the parts named replace their entries in
+the existing file.
 """
 
 import hashlib
@@ -120,7 +124,7 @@ FOUR_STEP_SEED, FOUR_STEP_K, FOUR_STEP_NDEV = 32, 9, (2, 4)
 PARTS = ("k7", "voter_k13", "msm", "reduce", "ladder", "plume",
          "pallas_point",
          "state_k15", "state_k13", "srs_file", "exp_mul", "wrapper_toy",
-         "poseidon", "four_step")
+         "poseidon", "four_step", "srs_k7_arrays")
 
 
 def vk_digest(vk) -> str:
@@ -516,6 +520,21 @@ def part_srs_file() -> dict:
             data = f.read()
     return {"srs_file_k7": {"k": 7, "srs_seed": "dev", "bytes": len(data),
                             "sha256": hashlib.sha256(data).hexdigest()}}
+
+
+def part_srs_k7_arrays() -> dict:
+    import numpy as np
+
+    from zksnap_tpu.prover.srs import gen_srs
+
+    gen_srs(7)  # writes build/srs_7_<sha8>.npz where it is not there yet
+    path = os.path.join(
+        "build", f"srs_7_{hashlib.sha256(b'dev').hexdigest()[:8]}.npz")
+    d = np.load(path)
+    return {"srs_k7_arrays": {
+        "k": 7, "srs_seed": "dev", "sha256": srs_sha256(7),
+        "arrays": {name: pack_u32(d[name])
+                   for name in ("x", "y", "z", "lx", "ly", "lz")}}}
 
 
 def pack_u32(arr) -> str:

@@ -1,8 +1,9 @@
 """Time the port's K1 and K2 (the field kernels), K3 (point formulas),
-K4 (bucket scan), K5 (weighted suffix) and K6 (ladder and tree) in other
-checkouts and this one on one card, in turns.
+K4 (bucket scan), K5 (weighted suffix), K6 (ladder and tree), K7 (the
+staged add) and K8 (the batched Jacobian add and dbl) in other checkouts
+and this one on one card, in turns.
 
-    python3 scripts/torch_kernel_ab.py OTHER_DIR [OTHER_DIR ...] [--out chiprun_out/ab.json]
+    python3 scripts/torch_kernel_ab.py OTHER_DIR [OTHER_DIR ...] [--parts k1_k6,k7_k8] [--out chiprun_out/ab.json]
 
 Each OTHER_DIR holds another checkout's `zksnap_tpu_torch` (for example
 the parent commit: `git archive <commit> zksnap_tpu_torch | tar -x -C
@@ -12,8 +13,10 @@ a process of its own with one checkout first on sys.path: it builds that
 checkout's kernels (kept in the checkout's own build directory), makes
 the same seeded inputs, calls the checkout's own `mont_mul`,
 `mont_addsub`, `point`, `bucket_scan`, `weighted_suffix` and
-`ladder_tree`, and reads CUDA events over repeated calls and the
-profiler's device time of each kernel.  The shapes:
+`ladder_tree` (part k1_k6) and `point_add_batch`, `point_dbl_batch`,
+`point_add_staged` and the SRS's double-and-add (part k7_k8), and reads
+CUDA events over repeated calls and the profiler's device time of each
+kernel.  `--parts` picks the parts (default both).  The shapes of k1_k6:
 
   * K1, K2 (add): n = 8192 (the k=13 path's) and 2^21 (the k=21 path's)
     contiguous rows, and stage 10 of a 2^21 NTT's views (K1 on
@@ -36,10 +39,23 @@ profiler's device time of each kernel.  The shapes:
     proves timed, and one under the profiler (busy seconds, K1's, K2's
     and PyTorch's direct_copy launches and device ms).
 
+The shapes of k7_k8, on chip_smoke.py's seeded Jacobian points:
+
+  * K8's add and dbl and K7 through their entry points at n = 2^20 and
+    32768 (chip_smoke.POINT_SHAPES; P == Q on about 2 % of the lanes),
+    K8's add on a batch with P == Q on every lane (the doubling fallback
+    everywhere) and on the warp-mixed edge batch at both n;
+  * K3's Jacobian add and dbl (`fused.point`) at n = 2^20;
+  * one 2^20-point chunk of the SRS's double-and-add
+    (`prover/srs.py` `_powers_to_points`, 254 bits, a dbl and an add a
+    bit), once, with its device time by kernel name.
+
 Each turn also reads the kernels' ptxas lines and SASS mix
 (chip_smoke.py's `ptxas_entries` and `kernel_sass`; cuobjdump is
-required).  K1's to K4's and K6's outputs (and the NTT's) must be the
-same bytes in every turn; K5's the same points (X1 Z2 = X2 Z1 and Y1 Z2
+required; part k7_k8 adds K3's Jacobian kinds and K7's and K8's own
+kernels, where a checkout has them).  K1's to K4's, K6's, K7's and K8's
+outputs (and the NTT's and the SRS chunk's) must be the same bytes in
+every turn; K5's the same points (X1 Z2 = X2 Z1 and Y1 Z2
 = Y2 Z1), since a redesign may add in another order.  Device times are
 given for each kernel: ms a call and launches a call.  Prints one JSON
 line with every turn and the card's name and power limit; the whole
@@ -65,11 +81,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCAN_NAMES = ("bucket_scan_kernel", "weighted_suffix_kernel",
               "suffix_chunk_total_kernel", "suffix_carry_kernel",
               "suffix_chunk_kernel")
-# every kernel whose device time a turn reports: K1-K6's and PyTorch's
+# K8's and K7's kernels of the checkouts before K8 and K7 went through
+# K3's launcher (`point_kernel`)
+JAC_NAMES = ("jac_add_kernel", "jac_dbl_kernel", "staged_add_a_kernel",
+             "staged_add_b_kernel")
+# every kernel whose device time a turn reports: K1-K8's and PyTorch's
 # copies
-KERNEL_NAMES = SCAN_NAMES + ("point_kernel", "ladder_tree_kernel",
-                             "mont_mul_kernel", "mont_addsub_kernel",
-                             "direct_copy")
+KERNEL_NAMES = SCAN_NAMES + JAC_NAMES + (
+    "point_kernel", "ladder_tree_kernel", "mont_mul_kernel",
+    "mont_addsub_kernel", "direct_copy")
+PARTS = ("k1_k6", "k7_k8")
 
 
 def _chip_smoke():
@@ -80,7 +101,7 @@ def _chip_smoke():
     return mod
 
 
-def turn(tree: str, k5_out: str) -> dict:
+def turn(tree: str, k5_out: str, parts) -> dict:
     """One turn in this process: `tree`'s package, timed."""
     sys.path.insert(0, tree)
     import torch
@@ -88,26 +109,65 @@ def turn(tree: str, k5_out: str) -> dict:
     cs = _chip_smoke()
     from zksnap_tpu_torch import kernels
     from zksnap_tpu_torch.curves import fused
-    from zksnap_tpu_torch.curves.native import BN254_G1
-    from zksnap_tpu_torch.fields import bn254_fq, bn254_fr
-    from zksnap_tpu_torch.fields import pallas_mont as pm
-    from zksnap_tpu_torch.poly.domain import domain
-    from zksnap_tpu_torch.poly.ntt import ntt
 
     pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(
         fused.__file__)))
     assert os.path.samefile(pkg_root, tree), (pkg_root, tree)
     lib = kernels.build()
     kernels.library()
-    # K3's projective kinds and K6's RCB kernel beside them, and K1, K2
+    # K3's projective kinds and K6's RCB kernel beside them, and K1, K2;
+    # with k7_k8 every kind of K3 and K7's and K8's own kernels
     names = SCAN_NAMES + cs.INLINED_KERNELS + ("mont_mul_kernel",
                                                "mont_addsub_kernel")
+    if "k7_k8" in parts:
+        names += ("point_kernel",) + JAC_NAMES
     with open(os.path.join(os.path.dirname(lib),
                            f"build_{kernels.source_hash()}.log")) as f:
         ptxas = {k: v for k, v in cs.ptxas_entries(f.read()).items()
                  if any(s in k for s in names)}
-    sass = cs.kernel_sass(lib, names)
+    out = {"tree": tree, "parts": list(parts), "ptxas": ptxas,
+           "sass": cs.kernel_sass(lib, names)}
     dev = torch.device("cuda", 0)
+    if "k1_k6" in parts:
+        out.update(k1_k6(cs, dev, k5_out))
+    if "k7_k8" in parts:
+        out.update(k7_k8(cs, dev))
+    return out
+
+
+def timed_calls(cs, calls: dict) -> dict:
+    """For each `key: (fn, reps)`: ms a call (CUDA events) and each
+    kernel's device ms a call and launches a call (the profiler)."""
+    out = {}
+    for key, (fn, reps) in calls.items():
+        _, by = cs.device_time(lambda: [fn() for _ in range(reps)])
+        out[f"{key}_ms"] = cs.cuda_ms(fn, reps)
+        out[f"{key}_device_ms"] = {
+            k: [v[1] / reps, v[0] / reps] for k, v in by.items()
+            if any(n in k for n in KERNEL_NAMES)}
+    return out
+
+
+def outputs_sha256(calls: dict, keys) -> str:
+    h = hashlib.sha256()
+    for key in keys:
+        got = calls[key][0]()
+        for a in (got if isinstance(got, (tuple, list)) else [got]):
+            h.update(a.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def k1_k6(cs, dev, k5_out: str) -> dict:
+    """Part k1_k6: K1-K6, a forward 2^21 NTT and the warm k=13 prove."""
+    import torch
+
+    from zksnap_tpu_torch.curves import fused
+    from zksnap_tpu_torch.curves.native import BN254_G1
+    from zksnap_tpu_torch.fields import bn254_fq, bn254_fr
+    from zksnap_tpu_torch.fields import pallas_mont as pm
+    from zksnap_tpu_torch.poly.domain import domain
+    from zksnap_tpu_torch.poly.ntt import ntt
+
     Fq, b3 = bn254_fq(), 3 * BN254_G1.b
     rng = random.Random(20261017)
     gen = torch.Generator().manual_seed(20261017)
@@ -179,16 +239,11 @@ def turn(tree: str, k5_out: str) -> dict:
         "k2_ntt_view_s10": (lambda: pm.mont_addsub(u, t, Fr.p, "add"), 50)}
     calls.update(field_calls)
     calls["ntt_2^21"] = (lambda: ntt(21).forward(x21), 10)
-    out = {"tree": tree, "ptxas": ptxas, "sass": sass}
+    out = {}
     for tag, keys in (("k3", [k for k in calls if k.startswith("k3")]),
                       ("k4", ("k4", "k4_k13")),
                       ("k1_k2", list(field_calls) + ["ntt_2^21"])):
-        h = hashlib.sha256()
-        for key in keys:
-            got = calls[key][0]()
-            for a in (got if isinstance(got, (tuple, list)) else [got]):
-                h.update(a.cpu().numpy().tobytes())
-        out[f"{tag}_sha256"] = h.hexdigest()
+        out[f"{tag}_sha256"] = outputs_sha256(calls, keys)
     h = hashlib.sha256()
     for c, w in wsums:
         for a in ladder(c, w)():
@@ -196,13 +251,7 @@ def turn(tree: str, k5_out: str) -> dict:
     out["k6_sha256"] = h.hexdigest()
     torch.save([[a.cpu() for a in calls[key][0]()] for key in ("k5", "k5_k7")],
                k5_out)
-    for key, (fn, reps) in calls.items():
-        _, by = cs.device_time(lambda: [fn() for _ in range(reps)])
-        out[f"{key}_ms"] = cs.cuda_ms(fn, reps)
-        # each kernel's device ms a call and launches a call
-        out[f"{key}_device_ms"] = {
-            k: [v[1] / reps, v[0] / reps] for k, v in by.items()
-            if any(n in k for n in KERNEL_NAMES)}
+    out.update(timed_calls(cs, calls))
     # one warm voter prove at k=13 (chip_smoke.py's phase 4 sets it up):
     # three timed, one under the profiler
     work = tempfile.mkdtemp(prefix="ab_k13_", dir=os.path.join(ROOT, "build"))
@@ -247,6 +296,59 @@ def turn(tree: str, k5_out: str) -> dict:
     return out
 
 
+def k7_k8(cs, dev, srs_n: int = 1 << 20) -> dict:
+    """Part k7_k8: K8's add and dbl and K7 through their entry points,
+    K3's Jacobian add and dbl at the first shape, and one chunk of srs_n
+    points of the SRS's double-and-add."""
+    import torch
+
+    from zksnap_tpu_torch.curves import fused
+    from zksnap_tpu_torch.curves import pallas_point as pp
+    from zksnap_tpu_torch.curves.jacobian import bn254_ops
+    from zksnap_tpu_torch.fields import bn254_fq, bn254_fr
+    from zksnap_tpu_torch.prover.srs import _powers_to_points
+
+    Fq = bn254_fq()
+    p, n0 = Fq.p, Fq.n0
+    rng = random.Random(20261018)
+    calls = {}
+    for tag, n in cs.POINT_SHAPES:
+        reps = 20 if n > 32768 else 200
+        P, Q, same = cs.point_batch_inputs(n, rng, dev)
+        S = cs.same_point_batch(n, rng, dev)
+        E, F, _ = cs.warp_mixed_batch(n, rng, dev)
+        calls[f"k8_add_{tag}"] = (
+            lambda P=P, Q=Q: pp.point_add_batch(P, Q, p, n0), reps)
+        calls[f"k8_dbl_{tag}"] = (
+            lambda P=P: pp.point_dbl_batch(P, p, n0), reps)
+        calls[f"k7_{tag}"] = (
+            lambda P=P, Q=Q: pp.point_add_staged(P, Q, p, n0), reps)
+        calls[f"k8_add_p_eq_q_{tag}"] = (
+            lambda S=S: pp.point_add_batch(S[0], S[1], p, n0), reps)
+        calls[f"k8_add_warp_mixed_{tag}"] = (
+            lambda E=E, F=F: pp.point_add_batch(E, F, p, n0), reps)
+        if tag == cs.POINT_SHAPES[0][0]:
+            calls[f"k3_add_{tag}"] = (
+                lambda P=P, Q=Q: fused.point("add", list(P + Q), p), reps)
+            calls[f"k3_dbl_{tag}"] = (
+                lambda P=P: fused.point("dbl", list(P), p), reps)
+    out = {"k7_k8_sha256": outputs_sha256(calls, list(calls))}
+    out.update(timed_calls(cs, calls))
+    # one chunk of the SRS's double-and-add: 2^20 scalars below r
+    Fr = bn254_fr()
+    scalars = [rng.randrange(Fr.p) for _ in range(srs_n)]
+    ops = bn254_ops()
+    got = _powers_to_points(ops, scalars, dev)
+    out["srs_chunk_sha256"] = hashlib.sha256(b"".join(
+        a.cpu().numpy().tobytes() for a in (got.x, got.y, got.z))).hexdigest()
+    del got
+    wall, by = cs.device_time(lambda: _powers_to_points(ops, scalars, dev))
+    out["srs_chunk"] = {"n": len(scalars), "wall_s": wall,
+                        "device_ms": {k: v[::-1] for k, v in by.items()}}
+    torch.cuda.empty_cache()
+    return out
+
+
 def same_points(a, b) -> bool:
     """Two projective point lists on the card are the same points."""
     import torch
@@ -268,11 +370,16 @@ def main(argv=None):
     ap.add_argument("others", nargs="+")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "ab.json"))
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help="comma-separated parts to run: " + ", ".join(PARTS))
     ap.add_argument("--turn", help=argparse.SUPPRESS)
     ap.add_argument("--k5-out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    parts = tuple(args.parts.split(","))
+    if not set(parts) <= set(PARTS):
+        ap.error(f"--parts: unknown part in {args.parts!r}")
     if args.turn:
-        print(json.dumps(turn(args.turn, args.k5_out)))
+        print(json.dumps(turn(args.turn, args.k5_out, parts)))
         return
     import torch
 
@@ -286,19 +393,22 @@ def main(argv=None):
         k5_out = os.path.join(work, f"k5_{i}.pt")
         res = subprocess.run(
             [sys.executable, os.path.abspath(__file__), tree,
-             "--turn", tree, "--k5-out", k5_out],
+             "--turn", tree, "--k5-out", k5_out, "--parts", args.parts],
             stdout=subprocess.PIPE, text=True, check=True)
         turns.append(json.loads(res.stdout.strip().splitlines()[-1]))
         t = turns[-1]
         print(json.dumps({k: v for k, v in t.items()
                           if k not in ("ptxas", "sass")}), flush=True)
-    k5 = [torch.load(os.path.join(work, f"k5_{i}.pt"))
-          for i in range(len(order))]
+    same = (("k1_k2", "k3", "k4", "k6") if "k1_k6" in parts else ()) + (
+        ("k7_k8", "srs_chunk") if "k7_k8" in parts else ())
     checks = {f"{k}_same_bytes": len({t[f"{k}_sha256"] for t in turns}) == 1
-              for k in ("k1_k2", "k3", "k4", "k6")}
-    checks["k5_same_points"] = all(same_points(k5[0][j], k5[i][j])
-                                   for i in range(1, len(order))
-                                   for j in (0, 1))
+              for k in same}
+    if "k1_k6" in parts:
+        k5 = [torch.load(os.path.join(work, f"k5_{i}.pt"))
+              for i in range(len(order))]
+        checks["k5_same_points"] = all(same_points(k5[0][j], k5[i][j])
+                                       for i in range(1, len(order))
+                                       for j in (0, 1))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

@@ -107,18 +107,50 @@ def _to_affine(F, curve, coords, jacobian: bool):
     return out
 
 
-KINDS = [("padd", False), ("pmadd", False), ("pdbl", False),
-         ("add", True), ("madd", True), ("dbl", True)]
+# rows of half a warp of K3's Jacobian kinds (one thread a point)
+MIX_ROWS = 16
 
 
-@pytest.mark.parametrize("kind,jacobian", KINDS, ids=[k for k, _ in KINDS])
-def test_point_kinds_match_jax(kind, jacobian):
+def _warp_mixed_points(curve, rng, warps: int = 3):
+    """_edge_points' pairs at random places in every MIX_ROWS rows, among
+    ordinary pairs: on the card the doubling fallback and the identity
+    selects run in warps whose other lanes take the plain formula."""
+    edge_ps, edge_qs = _edge_points(curve, rng)
+    g = AffinePoint.generator(curve)
+    pool = [rng.randrange(1, curve.n) * g for _ in range(6)]
+    ps, qs = [], []
+    for _ in range(warps):
+        wp = [rng.choice(pool) for _ in range(MIX_ROWS)]
+        wq = [rng.choice(pool) for _ in range(MIX_ROWS)]
+        for slot, a, b in zip(rng.sample(range(MIX_ROWS), len(edge_ps)),
+                              edge_ps, edge_qs):
+            wp[slot], wq[slot] = a, b
+        ps += wp
+        qs += wq
+    return ps, qs
+
+
+# (kind, Jacobian, edge pairs alone or spread over warps)
+KINDS = [("padd", False, "edge"), ("pmadd", False, "edge"),
+         ("pdbl", False, "edge"), ("add", True, "edge"),
+         ("madd", True, "edge"), ("dbl", True, "edge"),
+         ("add", True, "warp_mixed"), ("madd", True, "warp_mixed"),
+         ("dbl", True, "warp_mixed")]
+
+
+@pytest.mark.parametrize(
+    "kind,jacobian,layout", KINDS,
+    ids=[k if lay == "edge" else f"{k}-{lay}" for k, _, lay in KINDS])
+def test_point_kinds_match_jax(kind, jacobian, layout):
     """Each kind on BN254 against the JAX fused body and the oracle; the
-    mixed kinds take Q affine-or-identity and a non-trivial z1."""
+    mixed kinds take Q affine-or-identity and a non-trivial z1.  The
+    Jacobian kinds also on the edge pairs spread over three warps' worth
+    of ordinary pairs."""
     rng = random.Random(11)
     F = bn254_fq()
     b3 = 0 if jacobian else B3
-    ps, qs = _edge_points(BN254_G1, rng)
+    ps, qs = (_edge_points(BN254_G1, rng) if layout == "edge"
+              else _warp_mixed_points(BN254_G1, rng))
     P = _encode(ps, F, rng, jacobian)
     mixed = kind in ("madd", "pmadd")
     if kind in ("dbl", "pdbl"):

@@ -3,17 +3,19 @@ CPU at K=7: key and proof serialisation, `rebind_witness`, the ceremony
 SRS file, the KZG accumulator against the JAX package's, a two-round
 `RecursionChain`, and the CLI's and the proving service's surfaces.
 
-One module fixture makes the dev SRS, two toy circuits whose public
-instances follow the protocol layout (voter 30, state transition 70;
-prover/recursion.py:74-85) and three proofs: the voter's through a key
-saved, loaded and rebound to a new witness, and two state transitions
-whose roots and tallies chain.  The SRS file's sha256 is the frozen JAX
+One module fixture loads the dev SRS from the frozen JAX arrays (the
+port's own generation of it is held to them by tests/test_torch_prover.py),
+makes two toy circuits whose public instances follow the protocol layout
+(voter 30, state transition 70; prover/recursion.py:74-85) and three
+proofs: the voter's through a key saved, loaded and rebound to a new
+witness, and two state transitions whose roots and tallies chain.  The SRS file's sha256 is the frozen JAX
 package's (`scripts/gen_torch_port_vectors.py srs_file`); the JAX
 package's succinct verifier is host code and runs here.  The state
 transition's synthesis at k=15, its CLI round trip at k=13 and the
 server's at k=13 are `slow`.  Tolerance: none -- bytes and integers.
 """
 
+import base64
 import dataclasses
 import hashlib
 import json
@@ -24,6 +26,7 @@ import sys
 import threading
 import urllib.error
 import urllib.request
+import zlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -46,7 +49,7 @@ from zksnap_tpu_torch.prover import (RecursionChain, Snark,
                                      rebind_witness, save_pk, save_srs,
                                      save_vk, srs_sanity_check, verify)
 from zksnap_tpu_torch.prover.plonk import P
-from zksnap_tpu_torch.prover.srs import _lagrange_sum_check
+from zksnap_tpu_torch.prover.srs import _lagrange_sum_check, srs_cache_path
 from zksnap_tpu_torch.trace import Context, check
 
 torch.set_num_threads(1)
@@ -93,9 +96,26 @@ def _instances(seed):
     return voter, state1, state2
 
 
+def _frozen_srs_cache(cache_dir):
+    """Write the frozen K=7 dev SRS arrays (the JAX package's cache file,
+    vector `srs_k7_arrays`) where gen_srs looks for them, after checking
+    them against the sha256 that tests/test_torch_prover.py holds the
+    port's own K=7 SRS generation to."""
+    v = _vectors("srs_k7_arrays")
+    arrays = {name: np.frombuffer(zlib.decompress(base64.b64decode(packed)),
+                                  dtype="<u4").reshape(128, 16)
+              for name, packed in v["arrays"].items()}
+    h = hashlib.sha256()
+    for name in ("x", "y", "z", "lx", "ly", "lz"):
+        h.update(arrays[name].tobytes())
+    assert h.hexdigest() == v["sha256"] == _vectors("srs_k7")["sha256"]
+    np.savez(srs_cache_path(7, b"dev", cache_dir), **arrays)
+
+
 @pytest.fixture(scope="module")
 def chain(tmp_path_factory):
     d = tmp_path_factory.mktemp("delivery")
+    _frozen_srs_cache(str(d))
     srs = gen_srs(7, cache_dir=str(d), device=DEV)
     voter, state1, state2 = _instances(41)
     vpk = keygen(_toy([(v + 1) % P for v in voter]), 7, srs, device=DEV)

@@ -385,8 +385,9 @@ def test_kernel_sass_reads_loop_and_subroutines(monkeypatch):
 
 def test_inlined_reads_frame_and_calls(monkeypatch):
     """The report of the kernels that must run inlined: each one's
-    registers and stack frame from its ptxas lines, its CALLs from every
-    part of its SASS listing; one with a frame or a CALL fails the run."""
+    registers and stack frame from its ptxas lines, its CALLs and local
+    memory accesses from every part of its SASS listing; one with a frame,
+    a CALL or a local access fails the run."""
     import types
 
     import chip_smoke as cs
@@ -404,11 +405,12 @@ ptxas info    : Used 128 registers, used 1 barriers, 648 bytes cumulative stack 
                                                "EXIT"],
                "_Z18ladder_tree_kernelILb1EEvv": ["CALL.REL.NOINC 0x100",
                                                   "EXIT", "CALL.REL.NOINC 0x100",
+                                                  "STL [R1], R2",
                                                   "RET.REL.NODEC R20 0x0"]}
     lines = []
     for name, ops in listing.items():
         lines.append(f"\t\tFunction : {name}")
-        addrs = [0x10, 0x20, 0x100, 0x110][:len(ops)]
+        addrs = [0x10, 0x20, 0x100, 0x110, 0x120][:len(ops)]
         lines += [f"        /*{a:04x}*/{' ' * 19}{op} ;"
                   for a, op in zip(addrs, ops)]
     sass = "\n".join(lines) + "\n"
@@ -421,12 +423,15 @@ ptxas info    : Used 128 registers, used 1 barriers, 648 bytes cumulative stack 
     assert got == {
         "point_kernelILi3E": {"kernel": "_Z12point_kernelILi3ELi2EEvv",
                               "registers": 122, "stack_bytes": 0,
-                              "calls": 0},
+                              "calls": 0, "local": 0},
         "ladder_tree_kernelILb1E": {"kernel": "_Z18ladder_tree_kernelILb1EEvv",
                                     "registers": 128, "stack_bytes": 648,
-                                    "calls": 2}}
+                                    "calls": 2, "local": 1}}
     cs.require_inlined({"point_kernelILi3E": got["point_kernelILi3E"]})
     with pytest.raises(RuntimeError, match="not inlined"):
         cs.require_inlined(got)
+    with pytest.raises(RuntimeError, match="not inlined"):
+        cs.require_inlined({"point_kernelILi3E": dict(
+            got["point_kernelILi3E"], local=1)})
     with pytest.raises(RuntimeError, match="one kernel"):
         cs.inlined(cs.ptxas_entries(log), {}, frags)

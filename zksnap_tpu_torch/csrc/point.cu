@@ -2,25 +2,31 @@
 //
 // Replaces zksnap_tpu/curves/fused.py `_point_call` (reached through
 // `point_add_fused` / `point_dbl_fused`): padd, pmadd, pdbl (RCB 2015
-// complete projective, a = 0) and add, madd, dbl (Jacobian with branchless
+// complete projective, a = 0) and add, madd, dbl (Jacobian with
 // completeness selects).  The TPU kernel transposes to limb-major [16, n]
 // tiles padded to 128- or 1024-lane blocks; this one reads the port's
-// [n, 16] rows directly, the ragged edge masked.
+// [n, 16] rows directly, the ragged edge masked.  The Jacobian add and
+// dbl also serve K8 (zksnap_tpu/curves/pallas_point.py `_point_fns`) and
+// K7 (`_staged_add_fn`, the same add in one launch): curves/pallas_point.py
+// launches them through this kernel.
 //
 // Bound on the H100: the IMAD pipe.  A padd is 12 Montgomery products
 // (3,168 32-bit multiply results) against 6 x 64 bytes read and 3 x 64
-// written.  The prover's kinds, padd, pmadd and pdbl, are point_inline.cuh's
-// inlined formulas (no stack frame, a stage's products side by side),
-// shared by POINT_GROUP adjacent threads a point (fe_mul_group): twice
-// the warps of one thread a point, each thread holding half of a stage's
-// products, so that more warps hide the products' latency.  zk_point
-// picks the threads a block from n and the caller's SM count so that the
-// grid covers every SM where n allows (point_threads): at the k=13 path's
-// n = 8192 blocks of 128 threads would leave most of the card idle.  A
-// group past the end computes the last row and stores nothing, so that
-// every thread of a warp reaches the group's shuffles.  The Jacobian kinds
-// (off the prover's path) keep point.cuh's out-of-line formulas, one
-// thread a point.
+// written; a Jacobian add 16 (and the 7 of a dbl where P == Q).  Every
+// kind runs point_inline.cuh's inlined formulas: no stack frame, no
+// local memory.  The prover's kinds, padd, pmadd and pdbl, run a stage's
+// products side by side, shared by POINT_GROUP adjacent threads a point
+// (fe_mul_group): twice the warps of one thread a point, each thread
+// holding half of a stage's products, so that more warps hide the
+// products' latency.  zk_point picks their threads a block from n and the
+// caller's SM count so that the grid covers every SM where n allows
+// (point_threads): at the k=13 path's n = 8192 blocks of 128 threads
+// would leave most of the card idle.  A group past the end computes the
+// last row and stores nothing, so that every thread of a warp reaches the
+// group's shuffles.  The Jacobian kinds (the SRS's double-and-add, K7,
+// K8) take one thread a point and one product at a time, the add as a
+// program through one copy of the product's code, its doubling fallback
+// only in the blocks that hold a lane with P == Q.
 
 #include "point_inline.cuh"
 
@@ -28,7 +34,8 @@ constexpr int POINT_THREADS = 128;  // the most threads a block
 constexpr int POINT_GROUP = 2;      // threads a point of the RCB kinds
 
 // At least three blocks an SM, so at most 170 registers a thread: bound
-// to four (128 registers), padd ran 4 % slower at n = 8192 on the H100.
+// to four (128 registers), padd ran 4 % slower at n = 8192 on the H100,
+// and the Jacobian add spilled.
 template <int KIND, int T>
 __global__ void __launch_bounds__(POINT_THREADS, 3)
 point_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
@@ -38,18 +45,21 @@ point_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
              int32_t* __restrict__ oz, long long n, int b3, Modulus M) {
   const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / T;
   const long long o = (i < n ? i : n - 1) * 16;
-  Pt p{fe_load(x1 + o), fe_load(y1 + o), fe_load(z1 + o)};
   Pt r;
-  if constexpr (KIND == K_DBL) {
-    r = jdbl(p, M);
-  } else if constexpr (KIND == K_PDBL) {
-    r = pdbl_inl<T>(p, b3, M);
+  if constexpr (KIND == K_ADD || KIND == K_MADD) {
+    r = jadd_prog<KIND == K_MADD>(PtRows{x1 + o, y1 + o, z1 + o},
+                                  PtRows{x2 + o, y2 + o, z2 + o}, M);
   } else {
-    Pt q{fe_load(x2 + o), fe_load(y2 + o), fe_load(z2 + o)};
-    if constexpr (KIND == K_ADD) r = jadd<false>(p, q, M);
-    if constexpr (KIND == K_MADD) r = jadd<true>(p, q, M);
-    if constexpr (KIND == K_PADD) r = padd_inl<T>(p, q, b3, M);
-    if constexpr (KIND == K_PMADD) r = padd_mixed_inl<T>(p, q, b3, M);
+    Pt p{fe_load(x1 + o), fe_load(y1 + o), fe_load(z1 + o)};
+    if constexpr (KIND == K_DBL) {
+      r = jdbl_inl(p, M);
+    } else if constexpr (KIND == K_PDBL) {
+      r = pdbl_inl<T>(p, b3, M);
+    } else {
+      Pt q{fe_load(x2 + o), fe_load(y2 + o), fe_load(z2 + o)};
+      if constexpr (KIND == K_PADD) r = padd_inl<T>(p, q, b3, M);
+      if constexpr (KIND == K_PMADD) r = padd_mixed_inl<T>(p, q, b3, M);
+    }
   }
   if (i < n) pt_store_share<T>(ox, oy, oz, i, r);
 }

@@ -1,13 +1,14 @@
 // The Jacobian group-law formula bodies for a = 0 short-Weierstrass
-// curves, out of line: the point kernel's Jacobian kinds (point.cu), K7
-// and K8 (pallas_point.cu) and the Jacobian branches of K4, K5 and K6.
+// curves, out of line: the Jacobian branches of K4, K5 and K6 (b3 = 0).
 //
 // One-to-one translations of zksnap_tpu/curves/fused.py `_dbl_body` and
 // `_add_body` (dbl-2009-l and add-2007-bl / madd-2007-bl with branchless
 // completeness selects, identity z = 0).  Every field value stays
 // canonical; the TPU kernels' lazy [0, 2p) form is left for later.  The
-// RCB projective formulas (Algorithms 7-9), the prover's, are inlined
-// from point_inline.cuh.
+// RCB projective formulas (Algorithms 7-9), the prover's, and the same
+// Jacobian formulas for the point kernel's Jacobian kinds (K3's add,
+// madd and dbl, which K7 and K8 launch too) are inlined from
+// point_inline.cuh.
 #pragma once
 
 #include "field.cuh"

@@ -98,11 +98,11 @@ def _mont_const(p: int, c: int, device) -> torch.Tensor:
 
 
 # The plain formula bodies.  Each computes the values of the kernel
-# formulas (csrc/point_inline.cuh's RCB ones and csrc/point.cuh's Jacobian
-# ones, translations of the JAX package's fused.py bodies) with canonical
-# field ops, so kernel and plain version agree bit for bit; independent
-# ops of one stage share a call, and small constant factors are one
-# multiply (F.scale).
+# formulas (csrc/point_inline.cuh's RCB and Jacobian ones and
+# csrc/point.cuh's Jacobian ones, all translations of the JAX package's
+# fused.py bodies) with canonical field ops, so kernel and plain version
+# agree bit for bit; independent ops of one stage share a call, and small
+# constant factors are one multiply (F.scale).
 
 def _dbl_body_proj(F, x, y, z, b3: int):
     """RCB 2015 Algorithm 9 (a=0): complete projective doubling."""
@@ -150,53 +150,56 @@ def _add_body_proj(F, x1, y1, z1, x2, y2, z2, mixed: bool, b3: int):
 
 
 def _dbl_body(F, x, y, z):
-    """dbl-2009-l (a=0).  Identity (z=0) doubles to z=0."""
+    """dbl-2009-l (a=0), its independent products in one call a stage as
+    the kernel's (csrc/point_inline.cuh `jdbl_inl`) orders them:
+    {X^2, Y^2, Y Z}, {B^2, (X + B)^2, E^2}, E (D - X3).  Identity (z=0)
+    doubles to z=0."""
     A, B, yz = F.mul((x, x), (y, y), (y, z))
-    (xB,) = F.add((x, B))
-    C, t = F.mul((B, B), (xB, xB))
+    xB, A2 = F.add((x, B), (A, A))
+    (E,) = F.add((A2, A))
+    C, t, FF = F.mul((B, B), (xB, xB), (E, E))
     (D,) = F.sub((t, A))
     (D,) = F.sub((D, C))
-    D = F.dbl(D)
-    (E,) = F.add((F.dbl(A), A))
-    (FF,) = F.mul((E, E))
-    (X3,) = F.sub((FF, F.dbl(D)))
+    D, C2 = F.add((D, D), (C, C))
+    D2, C4 = F.add((D, D), (C2, C2))
+    (X3,) = F.sub((FF, D2))
     (dx,) = F.sub((D, X3))
+    C8, Z3 = F.add((C4, C4), (yz, yz))
     (ed,) = F.mul((E, dx))
-    (Y3,) = F.sub((ed, F.dbl(F.dbl(F.dbl(C)))))
-    return X3, Y3, F.dbl(yz)
+    (Y3,) = F.sub((ed, C8))
+    return X3, Y3, Z3
 
 
 def _add_body(F, x1, y1, z1, x2, y2, z2, mixed: bool):
-    """Complete Jacobian add.  mixed=True assumes z2 in {0, 1} (affine
-    stream), skipping the z2^2/z2^3 muls (madd-2007-bl)."""
+    """Complete Jacobian add, its independent products in one call a
+    stage as the kernel's program (csrc/point_inline.cuh `jadd_prog`)
+    orders them.  mixed=True assumes z2 in {0, 1} (affine stream),
+    skipping the z2^2/z2^3 muls (madd-2007-bl).  The doubling fallback is
+    computed only when a row needs it (P == Q, neither the identity), as
+    the kernel computes it only in the blocks that hold such a row: the
+    value is the same."""
     if mixed:
-        (z1z1,) = F.mul((z1, z1))
+        z1z1, y2z1 = F.mul((z1, z1), (y2, z1))
         u1, s1 = x1, y1
-        u2, s2a = F.mul((x2, z1z1), (y2, z1))
-        (s2,) = F.mul((s2a, z1z1))
+        u2, s2 = F.mul((x2, z1z1), (y2z1, z1z1))
+        h, r = F.sub((u2, u1), (s2, s1))
+        h2, r2, zf = F.add((h, h), (r, r), (z1, z1))
     else:
-        z1z1, z2z2 = F.mul((z1, z1), (z2, z2))
-        u1, u2, s1a, s2a = F.mul((x1, z2z2), (x2, z1z1), (y1, z2), (y2, z1))
-        s1, s2 = F.mul((s1a, z2z2), (s2a, z1z1))
-    h, r = F.sub((u2, u1), (s2, s1))
-    h2, r2 = F.add((h, h), (r, r))
-    (i,) = F.mul((h2, h2))
-    j, v, rr = F.mul((h, i), (u1, i), (r2, r2))
+        (zs,) = F.add((z1, z2))
+        z1z1, z2z2, y1z2, y2z1, zz = F.mul(
+            (z1, z1), (z2, z2), (y1, z2), (y2, z1), (zs, zs))
+        u1, u2, s1, s2 = F.mul((x1, z2z2), (x2, z1z1), (y1z2, z2z2),
+                               (y2z1, z1z1))
+        h, r, zz = F.sub((u2, u1), (s2, s1), (zz, z1z1))
+        (zf,) = F.sub((zz, z2z2))
+        h2, r2 = F.add((h, h), (r, r))
+    i, rr, z3 = F.mul((h2, h2), (r2, r2), (zf, h))
+    j, v = F.mul((h, i), (u1, i))
     (x3,) = F.sub((rr, j))
     (x3,) = F.sub((x3, F.dbl(v)))
     (vx,) = F.sub((v, x3))
     a, b = F.mul((r2, vx), (s1, j))
     (y3,) = F.sub((a, F.dbl(b)))
-    if mixed:
-        (z3,) = F.mul((F.dbl(z1), h))
-    else:
-        (zs,) = F.add((z1, z2))
-        (zz,) = F.mul((zs, zs))
-        (zz,) = F.sub((zz, z1z1))
-        (zz,) = F.sub((zz, z2z2))
-        (z3,) = F.mul((zz, h))
-
-    dx, dy, dz = _dbl_body(F, x1, y1, z1)
 
     h_zero = F.is_zero(h)
     r_zero = F.is_zero(r)
@@ -206,9 +209,12 @@ def _add_body(F, x1, y1, z1, x2, y2, z2, mixed: bool):
     use_dbl = h_zero & r_zero & ~p_inf & ~q_inf
     to_inf = h_zero & ~r_zero & ~p_inf & ~q_inf
 
-    x = F.select(use_dbl, dx, x3)
-    y = F.select(use_dbl, dy, y3)
-    z = F.select(use_dbl, dz, z3)
+    x, y, z = x3, y3, z3
+    if bool(use_dbl.any()):
+        dx, dy, dz = _dbl_body(F, x1, y1, z1)
+        x = F.select(use_dbl, dx, x)
+        y = F.select(use_dbl, dy, y)
+        z = F.select(use_dbl, dz, z)
     z = F.select(to_inf, torch.zeros_like(z), z)
     x = F.select(q_inf, x1, F.select(p_inf, x2, x))
     y = F.select(q_inf, y1, F.select(p_inf, y2, y))

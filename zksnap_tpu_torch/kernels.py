@@ -24,8 +24,7 @@ import subprocess
 
 CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 SOURCES = ("mont.cu", "point.cu", "bucket_scan.cu", "reduce.cu",
-           "pallas_point.cu", "exp_rates.cu", "exp_mul_variants.cu",
-           "exp_mul_mxu.cu")
+           "exp_rates.cu", "exp_mul_variants.cu", "exp_mul_mxu.cu")
 HEADERS = ("field.cuh", "field_inline.cuh", "point.cuh", "point_inline.cuh",
            "mont16.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(__file__), "..", "build",
@@ -45,10 +44,6 @@ _SIGNATURES = {
     "zk_bucket_scan": [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P, _P],
     "zk_weighted_suffix": [_P] * 7 + [_LL, _LL] + [_I] * 5 + [_P, _P],
     "zk_ladder_tree": [_P] * 6 + [_I, _I, _I, _I, _P, _P],
-    "zk_jac_add": [_P] * 9 + [_LL, _P, _P],
-    "zk_jac_dbl": [_P] * 6 + [_LL, _P, _P],
-    "zk_staged_add_a": [_P, _P, _LL, _P, _P],
-    "zk_staged_add_b": [_P, _P, _LL, _P, _P],
     "zk_exp_chain": [_I, _P, _P, _P, _LL, _I, _P],
     "zk_exp_dot": [_I, _P, _P, _P, _I, _I, _P],
     "zk_exp_mul16": [_P, _P, _P, _LL, _I, _I, _P, _P],
