@@ -149,6 +149,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import math
 import os
 import random
 import re
@@ -1263,7 +1264,7 @@ def sass_functions(lib_path: str) -> dict:
             cur = funcs.setdefault(m.group(1), [])
             continue
         m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
-                      r"([A-Z][A-Z0-9.]*)\s*([^;]*);", line)
+                      r"([A-Z][A-Za-z0-9.]*)\s*([^;]*);", line)
         if cur is not None and m:
             cur.append((int(m.group(1), 16), m.group(2), m.group(3)))
     return funcs
@@ -1449,6 +1450,124 @@ def chain_step_rate(body: dict, unroll: int) -> float:
     return SM_CLOCKS_PER_S * unroll / clocks
 
 
+# K9's and K10's kernels (the 16-bit-limb Montgomery products), by their
+# mangled names' prefixes, and the operations of one of K10's `mma.sync`
+# m16n8k32 warp instructions
+EXP_MUL_KERNELS = ("mul16_kernel", "mxu_mul_kernel")
+MMA_OPS = 2 * 16 * 8 * 32
+# their ptxas lines (registers, stack frame bytes) since their redesign
+# (exp_kernel_key's keys)
+EXP_MUL_PTXAS = {"mul16_kernel<0>": (70, 0), "mul16_kernel<1>": (60, 0),
+                 "mxu_mul_kernel<0>": (62, 0), "mxu_mul_kernel<1>": (122, 0),
+                 "mxu_mul_kernel<2>": (96, 0), "mxu_mul_kernel<3>": (116, 0),
+                 "mxu_mul_kernel<4>": (92, 0), "mxu_mul_kernel<5>": (128, 0)}
+
+
+def weighted_opcodes(instrs, trips) -> dict:
+    """{opcode with its modifiers: count} of a listing, each instruction
+    counted once for every trip of the loops around it: trips[d] for a
+    loop at depth d (0 the outermost; the spans of loop_spans), once for a
+    loop deeper than trips gives.  The branch to itself that ends a
+    listing is no loop."""
+    spans = [(lo, hi) for lo, hi in loop_spans(instrs) if lo < hi]
+    out = {}
+    for addr, op, _ in instrs:
+        depth = sum(lo <= addr <= hi for lo, hi in spans)
+        w = 1
+        for d in range(min(depth, len(trips))):
+            w *= trips[d]
+        out[op] = out.get(op, 0) + w
+    return out
+
+
+def issue_clocks(ops: dict) -> dict:
+    """SM clocks that one element's instructions (one thread's weighted
+    opcodes) take on 132 SMs, for the issue and each pipe: the issue 128
+    lanes a clock, the IMAD and ALU pipes 64 (IMAD.WIDE twice on the IMAD
+    pipe, its two 32-bit results as MUL_OPS counts them), the tensor cores
+    at the int8 rate: MMA_OPS for a warp's IMMA, 2 M N K for a
+    warpgroup's IGMMA.MxNxK."""
+    def count(names, wide=False):
+        return sum(c * (2 if wide and o.startswith("IMAD.WIDE") else 1)
+                   for o, c in ops.items() if o.split(".")[0] in names)
+
+    mma = count(("IMMA", "HMMA")) * MMA_OPS / 32
+    for o, c in ops.items():
+        m = re.match(r"IGMMA\.(\d+)x(\d+)x(\d+)", o)
+        if m:
+            mma += c * 2 * math.prod(map(int, m.groups())) / 128
+    return {"issue": sum(ops.values()) / ISSUE_LANES,
+            "imad": count(PIPES["imad"][1], wide=True) / PIPES["imad"][0],
+            "alu": count(PIPES["alu"][1]) / PIPES["alu"][0],
+            "tensor": mma / (INT8_OPS_PER_S / SM_CLOCKS_PER_S)}
+
+
+def issue_bound(ops: dict, n: int, nbytes: float) -> dict:
+    """The least time n elements' compiled instructions `ops` (one
+    element's, issue_clocks) could take, or their bytes at HBM's rate."""
+    clk = issue_clocks(ops)
+    by = max(clk, key=clk.get)
+    t = clk[by] * n / SM_CLOCKS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"issue_bound_ms": max(t, t_bytes),
+            "issue_bound_by": by if t >= t_bytes else "bytes",
+            "clocks_an_element": clk}
+
+
+def exp_mul_report(ptxas: dict, lib_path: str) -> dict:
+    """{K9 or K10 kernel: its ptxas line, the LDL/STL and CALLs and the
+    loops of its listing, and the SASS an element runs at each shape
+    (weighted_opcodes)}: mul16_kernel<false> one product a trip of its
+    loop over n_muls (B once, the chains x4, x18, x40), <true> (C) once
+    with 16 trips of each loop inside, mxu_mul_kernel<V> one trip of its
+    loop over the tiles.  A loop that these do not name counts once (the
+    count is then a floor), and `loops` says how many loops the listing
+    has."""
+    from zksnap_tpu_torch.experiments import exp_mul_variants as mv
+
+    out = {}
+    for name, instrs in sass_functions(lib_path).items():
+        if not any(f in name for f in EXP_MUL_KERNELS):
+            continue
+        if "mul16_kernelILb0E" in name:
+            shapes = {"B": [1], **{f"B x{k}": [k] for k in mv.CHAINS}}
+        elif "mul16_kernelILb1E" in name:
+            shapes = {"C": [1, 16]}
+        else:
+            shapes = {"": [1]}
+        ops = [o for _, o, _ in instrs]
+        out[name] = {
+            **{k: ptxas.get(name, {}).get(k) for k in (
+                "registers", "stack_bytes", "spill_stores", "spill_loads")},
+            "LDL/STL": sum(o.split(".")[0] in ("LDL", "STL") for o in ops),
+            "CALL": sum(o.startswith("CALL") for o in ops),
+            "loops": sum(lo < hi for lo, hi in loop_spans(instrs)),
+            "an_element": {tag: weighted_opcodes(instrs, trips)
+                           for tag, trips in shapes.items()}}
+    return out
+
+
+def exp_kernel_key(name: str) -> str:
+    """A K9 or K10 kernel's mangled name -> `mul16_kernel<1>`, say: the
+    same key for any signature."""
+    m = re.search(r"(mul16_kernel|mxu_mul_kernel)IL[bi](\d)E", name)
+    require(m, ("not a K9 or K10 kernel", name))
+    return f"{m.group(1)}<{m.group(2)}>"
+
+
+def require_exp_mul(report: dict):
+    """K9's and K10's kernels against EXP_MUL_PTXAS (their registers and
+    stack frames, every one 0 bytes), and no LDL/STL in any listing."""
+    got = {exp_kernel_key(k): r for k, r in report.items()}
+    require(set(got) == set(EXP_MUL_PTXAS), ("K9/K10 kernels", sorted(got)))
+    lines = {k: (r["registers"], r["stack_bytes"]) for k, r in got.items()}
+    require(lines == EXP_MUL_PTXAS, ("K9/K10 ptxas lines changed", {
+        k: (v, EXP_MUL_PTXAS[k]) for k, v in lines.items()
+        if v != EXP_MUL_PTXAS[k]}))
+    require(all(r["LDL/STL"] == 0 for r in got.values()),
+            ("K9/K10 local memory", {k: r["LDL/STL"] for k, r in got.items()}))
+
+
 def u32_rows(rng, W: int, dev) -> torch.Tensor:
     """[16, W] uint32 bits as int32: rows 0-7 over all 32 bits, rows 8-15
     below 2^16 (the scripts' range)."""
@@ -1473,7 +1592,46 @@ EXP_W_LOG, EXP_CHAIN, EXP_N_LOG, EXP_B_LOG = 14, 512, 20, 18
 RATE_CHAIN = 16384  # K11's chains again, long enough to read a rate
 
 
-def phase_experiments(dev, results, loops: dict) -> dict:
+def exp_mul_ragged(dev) -> dict:
+    """K9's B, C and chain x4 at n = 2^20 - 37 and 100, and K10's six
+    variants at B = 2^18 - 37 and 100, each bit-exact against its plain
+    version: sizes off every multiple of 32, so a tile with idle lanes, a
+    block with idle warps and kar+mxu's warpgroup with a warp past n all
+    run.  Returns {shape: n}."""
+    from zksnap_tpu_torch.experiments import exp_mul_mxu as mx
+    from zksnap_tpu_torch.experiments import exp_mul_variants as mv
+    from zksnap_tpu_torch.fields import bn254_fr
+
+    rng = np.random.default_rng(20261018)
+    out = {}
+    F, Fr = mv.FQ, bn254_fr()
+    for n in ((1 << EXP_N_LOG) - 37, 100):
+        a = limb_rows(rng, n, 0x2FFF, dev, edge=(0, 1, F.p - 1, F.p - 2))
+        b = limb_rows(rng, n, 0x2FFF, dev, edge=(F.p - 1, 0, F.p - 1, 1))
+        want = mv.mul_limb_major_plain(a, b, F.p)
+        for name, rolled in (("B", False), ("C", True)):
+            got = mv.mul_limb_major(a, b, F.p, rolled=rolled)
+            require(torch.equal(got, want), ("K9 ragged", name, n))
+            out[f"K9 {name}"] = out.get(f"K9 {name}", []) + [n]
+        got = mv.mul_limb_major(a, b, F.p, n_muls=4)
+        require(torch.equal(got, mv.mul_limb_major_plain(a, b, F.p,
+                                                         n_muls=4)),
+                ("K9 ragged chain x4", n))
+        out["K9 B x4"] = out.get("K9 B x4", []) + [n]
+    for B in ((1 << EXP_B_LOG) - 37, 100):
+        edge = (0, 1, Fr.p - 1, (1 << 256) - 1)
+        a = limb_rows(rng, B, 0xFFFF, dev, edge=edge)
+        b = limb_rows(rng, B, 0xFFFF, dev, edge=edge[::-1])
+        for variant in mx.VARIANTS:
+            got = mx.mont_mul_mxu(a, b, variant, Fr.p)
+            require(torch.equal(got, mx.mont_mul_mxu_plain(a, b, variant,
+                                                           Fr.p)),
+                    ("K10 ragged", variant, B))
+            out[f"K10 {variant}"] = out.get(f"K10 {variant}", []) + [B]
+    return out
+
+
+def phase_experiments(dev, results, loops: dict, exp_report: dict) -> dict:
     """The experiments path: each module's `main` at the scripts' default
     sizes on the card (exp_vpu_rates: 16 x 2^14 lanes, chain 512, 64
     products; exp_mul_variants: n = 2^20, chains at 2^18; exp_mul_mxu:
@@ -1481,7 +1639,9 @@ def phase_experiments(dev, results, loops: dict) -> dict:
     the counts of K9-K11 set to 0 just before and read just after; then
     every kernel against its plain version at those shapes, with the
     mains' times per call and the profiler's device times.  `loops` are
-    K11's chain loop bodies (chain_loops), which bound its chains.
+    K11's chain loop bodies (chain_loops), which bound its chains;
+    `exp_report` K9's and K10's kernels (exp_mul_report), whose SASS an
+    element gives each shape its issue bound beside the function's.
     Returns the launches of the path."""
     from zksnap_tpu_torch.experiments import exp_mul_mxu as mx
     from zksnap_tpu_torch.experiments import exp_mul_variants as mv
@@ -1611,6 +1771,7 @@ def phase_experiments(dev, results, loops: dict) -> dict:
     F = mv.FQ
     n = 1 << EXP_N_LOG
     timing = lines["exp_mul_variants"]
+    sass = {exp_kernel_key(k): r["an_element"] for k, r in exp_report.items()}
     a = limb_rows(rng, n, 0x2FFF, dev, edge=(0, 1, F.p - 1, F.p - 2))
     b = limb_rows(rng, n, 0x2FFF, dev, edge=(F.p - 1, 0, F.p - 1, 1))
     forms = {"B": lambda: mv.mul_limb_major(a, b, F.p),
@@ -1626,9 +1787,15 @@ def phase_experiments(dev, results, loops: dict) -> dict:
             device_ms=kernel_device_ms(
                 fn, "mont_mul_kernel" if name == "A" else "mul16_kernel"),
             **bound(n * MUL_OPS, n * 3 * ROW))
+        if name != "A":
+            r.update(issue_bound(sass[f"mul16_kernel<{int(name == 'C')}>"][
+                name], n, n * 3 * ROW))
         log(f"K9 {name} bit-exact (n={n}): {r['ms']:.4f} ms a call "
             f"({fmt_ms(r['device_ms'])} on the device), plain "
-            f"{plain_ms:.4f} ms, bound {r['bound_ms']:.4g} ms")
+            f"{plain_ms:.4f} ms, bound {r['bound_ms']:.4g} ms"
+            + ("" if name == "A" else
+               f", issue bound {r['issue_bound_ms']:.4g} ms "
+               f"({r['issue_bound_by']})"))
     q = n // 4
     aq, bq = a[:, :q].contiguous(), b[:, :q].contiguous()
     for k in mv.CHAINS:
@@ -1642,10 +1809,12 @@ def phase_experiments(dev, results, loops: dict) -> dict:
             results, "K9", f"B x{k}", n=q, max_abs_err=err,
             ms=timing[f"B x{k}"]["ms"], plain_ms=plain_ms,
             device_ms=kernel_device_ms(fn, "mul16_kernel"),
-            **bound(q * k * MUL_OPS, q * 3 * ROW))
+            **bound(q * k * MUL_OPS, q * 3 * ROW),
+            **issue_bound(sass["mul16_kernel<0>"][f"B x{k}"], q, q * 3 * ROW))
         log(f"K9 B chain x{k} bit-exact (n={q}): {r['ms']:.4f} ms a call "
             f"({fmt_ms(r['device_ms'])} on the device), plain "
-            f"{plain_ms:.4f} ms, bound {r['bound_ms']:.4g} ms")
+            f"{plain_ms:.4f} ms, bound {r['bound_ms']:.4g} ms, issue bound "
+            f"{r['issue_bound_ms']:.4g} ms ({r['issue_bound_by']})")
 
     # K10: six variants at B = 2^18 over all 16-bit limbs (the script's
     # timing inputs), and the product variants on the 256 oracle values
@@ -1678,11 +1847,18 @@ def phase_experiments(dev, results, loops: dict) -> dict:
             ms=timing[variant]["ms"], plain_ms=plain_ms,
             oracle_256=variant in mx.PRODUCTS or None,
             device_ms=kernel_device_ms(fn, "mxu_mul_kernel"),
-            **bound(ops, B * 3 * ROW))
+            **bound(ops, B * 3 * ROW),
+            **issue_bound(sass[f"mxu_mul_kernel<{mx.VARIANTS.index(variant)}>"]
+                          [""], B, B * 3 * ROW))
         log(f"K10 {variant:10s} bit-exact (B={B}"
             + (", 256 values = oracle" if variant in mx.PRODUCTS else "")
             + f"): {r['ms']:.4f} ms a call ({fmt_ms(r['device_ms'])} on the "
-            f"device), plain {plain_ms:.4f} ms, bound {r['bound_ms']:.4g} ms")
+            f"device), plain {plain_ms:.4f} ms, bound {r['bound_ms']:.4g} ms,"
+            f" issue bound {r['issue_bound_ms']:.4g} ms "
+            f"({r['issue_bound_by']})")
+    results["experiments_ragged"] = exp_mul_ragged(dev)
+    log(f"K9 and K10 bit-exact at ragged sizes: "
+        f"{results['experiments_ragged']}")
     return launches
 
 
@@ -2802,8 +2978,14 @@ def main():
     check_ladder_fit(dev, rng, results)
     launches_k7_k8 = phase_point_batch(dev, rng, results)
     loops = chain_loops(lib_path)
+    exp_report = exp_mul_report(all_ptxas, lib_path)
+    for name, r in exp_report.items():
+        log(f"  K9/K10 {exp_kernel_key(name)}: {r['registers']} registers, "
+            f"{r['stack_bytes']}-byte stack frame, {r['LDL/STL']} LDL/STL, "
+            f"{r['CALL']} CALL, {r['loops']} loops")
+    require_exp_mul(exp_report)
     t_exp = time.time()
-    launches_exp = phase_experiments(dev, results, loops)
+    launches_exp = phase_experiments(dev, results, loops, exp_report)
     exp_s = time.time() - t_exp
     log(f"experiments phase: {exp_s:.1f} s")
     # the kernels line gives K1-K6 at the k=21 path's shape (their
@@ -2958,6 +3140,7 @@ def main():
                    "k3_k6_sass": {k: v for k, v in sass.items()
                                   if k not in scan_sass},
                    "k6_fit": results["K6_fit"],
+                   "k9_k10_kernels": exp_report,
                    "k3_kinds": results["K3_kinds"],
                    "shapes": {k: results[k + "_shapes"] for k in meta
                               if k + "_shapes" in results},

@@ -1,9 +1,10 @@
 """Time the port's K1 and K2 (the field kernels), K3 (point formulas),
 K4 (bucket scan), K5 (weighted suffix), K6 (ladder and tree), K7 (the
-staged add) and K8 (the batched Jacobian add and dbl) in other checkouts
-and this one on one card, in turns.
+staged add), K8 (the batched Jacobian add and dbl), K9 and K10 (the
+16-bit-limb Montgomery products) in other checkouts and this one on one
+card, in turns.
 
-    python3 scripts/torch_kernel_ab.py OTHER_DIR [OTHER_DIR ...] [--parts k1_k6,k7_k8] [--out chiprun_out/ab.json]
+    python3 scripts/torch_kernel_ab.py OTHER_DIR [OTHER_DIR ...] [--parts k1_k6,k7_k8,k9_k10] [--out chiprun_out/ab.json]
 
 Each OTHER_DIR holds another checkout's `zksnap_tpu_torch` (for example
 the parent commit: `git archive <commit> zksnap_tpu_torch | tar -x -C
@@ -14,9 +15,11 @@ checkout's kernels (kept in the checkout's own build directory), makes
 the same seeded inputs, calls the checkout's own `mont_mul`,
 `mont_addsub`, `point`, `bucket_scan`, `weighted_suffix` and
 `ladder_tree` (part k1_k6) and `point_add_batch`, `point_dbl_batch`,
-`point_add_staged` and the SRS's double-and-add (part k7_k8), and reads
-CUDA events over repeated calls and the profiler's device time of each
-kernel.  `--parts` picks the parts (default both).  The shapes of k1_k6:
+`point_add_staged` and the SRS's double-and-add (part k7_k8),
+`mul_limb_major` and `mont_mul_mxu` (part k9_k10), and reads CUDA events
+over repeated calls and the profiler's device time of each kernel.
+`--parts` picks the parts (default k1_k6 and k7_k8).  The shapes of
+k1_k6:
 
   * K1, K2 (add): n = 8192 (the k=13 path's) and 2^21 (the k=21 path's)
     contiguous rows, and stage 10 of a 2^21 NTT's views (K1 on
@@ -50,16 +53,24 @@ The shapes of k7_k8, on chip_smoke.py's seeded Jacobian points:
     (`prover/srs.py` `_powers_to_points`, 254 bits, a dbl and an add a
     bit), once, with its device time by kernel name.
 
+The shapes of k9_k10, on chip_smoke.py's seeded 16-bit limbs (edge
+values first): K9's variants B and C at n = 2^20 and B's chains x4, x18
+and x40 at 2^18 (the experiment's own shapes); K10's six variants at
+B = 2^18 (the experiment's) and 2^20.
+
 Each turn also reads the kernels' ptxas lines and SASS mix
 (chip_smoke.py's `ptxas_entries` and `kernel_sass`; cuobjdump is
 required; part k7_k8 adds K3's Jacobian kinds and K7's and K8's own
-kernels, where a checkout has them).  K1's to K4's, K6's, K7's and K8's
-outputs (and the NTT's and the SRS chunk's) must be the same bytes in
-every turn; K5's the same points (X1 Z2 = X2 Z1 and Y1 Z2
+kernels, where a checkout has them; part k9_k10 K9's and K10's, with
+each one's SASS an element and its issue bound, chip_smoke.py's
+`exp_mul_report`).  K1's to K4's, K6's to K10's outputs (and the NTT's
+and the SRS chunk's) must be the same bytes in every turn; K5's the same points (X1 Z2 = X2 Z1 and Y1 Z2
 = Y2 Z1), since a redesign may add in another order.  Device times are
 given for each kernel: ms a call and launches a call.  Prints one JSON
 line with every turn and the card's name and power limit; the whole
-record goes to --out.
+record goes to --out, with part k9_k10's summary (`k9_k10_summary`:
+each tree's device ms range and issue bound beside the function's bound
+at each shape).
 """
 
 from __future__ import annotations
@@ -89,8 +100,8 @@ JAC_NAMES = ("jac_add_kernel", "jac_dbl_kernel", "staged_add_a_kernel",
 # copies
 KERNEL_NAMES = SCAN_NAMES + JAC_NAMES + (
     "point_kernel", "ladder_tree_kernel", "mont_mul_kernel",
-    "mont_addsub_kernel", "direct_copy")
-PARTS = ("k1_k6", "k7_k8")
+    "mont_addsub_kernel", "direct_copy") + ("mul16_kernel", "mxu_mul_kernel")
+PARTS = ("k1_k6", "k7_k8", "k9_k10")
 
 
 def _chip_smoke():
@@ -123,8 +134,9 @@ def turn(tree: str, k5_out: str, parts) -> dict:
         names += ("point_kernel",) + JAC_NAMES
     with open(os.path.join(os.path.dirname(lib),
                            f"build_{kernels.source_hash()}.log")) as f:
-        ptxas = {k: v for k, v in cs.ptxas_entries(f.read()).items()
-                 if any(s in k for s in names)}
+        all_ptxas = cs.ptxas_entries(f.read())
+    ptxas = {k: v for k, v in all_ptxas.items()
+             if any(s in k for s in names)}
     out = {"tree": tree, "parts": list(parts), "ptxas": ptxas,
            "sass": cs.kernel_sass(lib, names)}
     dev = torch.device("cuda", 0)
@@ -132,6 +144,9 @@ def turn(tree: str, k5_out: str, parts) -> dict:
         out.update(k1_k6(cs, dev, k5_out))
     if "k7_k8" in parts:
         out.update(k7_k8(cs, dev))
+    if "k9_k10" in parts:
+        out["k9_k10_kernels"] = cs.exp_mul_report(all_ptxas, lib)
+        out.update(k9_k10(cs, dev))
     return out
 
 
@@ -349,6 +364,80 @@ def k7_k8(cs, dev, srs_n: int = 1 << 20) -> dict:
     return out
 
 
+def k9_k10(cs, dev) -> dict:
+    """Part k9_k10: K9's B and C at n = 2^20 and its chains at 2^18, K10's
+    six variants at B = 2^18 and 2^20."""
+    import numpy as np
+
+    from zksnap_tpu_torch.experiments import exp_mul_mxu as mx
+    from zksnap_tpu_torch.experiments import exp_mul_variants as mv
+
+    rng = np.random.default_rng(20261019)
+    p, r = mv.FQ.p, mx.FR.p
+    n = 1 << cs.EXP_N_LOG
+    a = cs.limb_rows(rng, n, 0x2FFF, dev, edge=(0, 1, p - 1, p - 2))
+    b = cs.limb_rows(rng, n, 0x2FFF, dev, edge=(p - 1, 0, p - 1, 1))
+    aq, bq = a[:, :n // 4].contiguous(), b[:, :n // 4].contiguous()
+    calls = {"k9_B_2^20": (lambda: mv.mul_limb_major(a, b, p), 50),
+             "k9_C_2^20": (lambda: mv.mul_limb_major(a, b, p, rolled=True),
+                           20)}
+    for k in mv.CHAINS:
+        calls[f"k9_B_x{k}_2^18"] = (
+            lambda k=k: mv.mul_limb_major(aq, bq, p, n_muls=k), 20)
+    top = (1 << 256) - 1
+    for log_b in (cs.EXP_B_LOG, cs.EXP_N_LOG):
+        x = cs.limb_rows(rng, 1 << log_b, 0xFFFF, dev, edge=(0, 1, r - 1, top))
+        y = cs.limb_rows(rng, 1 << log_b, 0xFFFF, dev, edge=(r - 1, 0, r - 1,
+                                                             top))
+        for v in mx.VARIANTS:
+            calls[f"k10_{v}_2^{log_b}"] = (
+                lambda v=v, x=x, y=y: mx.mont_mul_mxu(x, y, v, r), 50)
+    out = {"k9_k10_sha256": outputs_sha256(calls, list(calls))}
+    out.update(timed_calls(cs, calls))
+    return out
+
+
+def k9_k10_summary(record: dict) -> dict:
+    """{shape: {"bound_ms", "bound_by", tree: {"device_ms": [lo, hi],
+    "issue_bound_ms", "issue_bound_by"}}} over a k9_k10 record's turns:
+    each tree's device ms a call (the range over its turns), the
+    function's bound (chip_smoke.bound: MUL_OPS a product, or the 256-bit
+    product's for K10's ablations, and 192 bytes an element) and the issue
+    bound of the tree's compiled SASS (chip_smoke.issue_bound)."""
+    cs = _chip_smoke()
+    out = {}
+    for t in record["turns"]:
+        tree = os.path.basename(os.path.normpath(t["tree"]))
+        sass = {cs.exp_kernel_key(k): r["an_element"]
+                for k, r in t["k9_k10_kernels"].items()}
+        for key in t:
+            if not (key.startswith(("k9_", "k10_"))
+                    and key.endswith("_device_ms")):
+                continue
+            shape = key[:-len("_device_ms")]
+            kind, *mid, size = shape.split("_")
+            n = 1 << int(size.split("^")[1])
+            if kind == "k9":
+                muls = int(mid[1][1:]) if len(mid) > 1 else 1
+                kernel = f"mul16_kernel<{int(mid[0] == 'C')}>"
+                tag = mid[0] if muls == 1 else f"B x{muls}"
+                ops = n * muls * cs.MUL_OPS
+            else:
+                from zksnap_tpu_torch.experiments import exp_mul_mxu as mx
+
+                v = "_".join(mid)
+                kernel, tag = f"mxu_mul_kernel<{mx.VARIANTS.index(v)}>", ""
+                ops = n * (cs.MUL_OPS if v in mx.PRODUCTS else cs.PRODUCT_OPS)
+            r = out.setdefault(shape, cs.bound(ops, n * 3 * cs.ROW))
+            ms = sum(v[0] for v in t[key].values())
+            lo, hi = r.get(tree, {}).get("device_ms", [ms, ms])
+            r[tree] = {"device_ms": [min(lo, ms), max(hi, ms)],
+                       **{k: v for k, v in cs.issue_bound(
+                           sass[kernel][tag], n, n * 3 * cs.ROW).items()
+                          if k != "clocks_an_element"}}
+    return out
+
+
 def same_points(a, b) -> bool:
     """Two projective point lists on the card are the same points."""
     import torch
@@ -370,7 +459,7 @@ def main(argv=None):
     ap.add_argument("others", nargs="+")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "ab.json"))
-    ap.add_argument("--parts", default=",".join(PARTS),
+    ap.add_argument("--parts", default="k1_k6,k7_k8",
                     help="comma-separated parts to run: " + ", ".join(PARTS))
     ap.add_argument("--turn", help=argparse.SUPPRESS)
     ap.add_argument("--k5-out", help=argparse.SUPPRESS)
@@ -400,7 +489,8 @@ def main(argv=None):
         print(json.dumps({k: v for k, v in t.items()
                           if k not in ("ptxas", "sass")}), flush=True)
     same = (("k1_k2", "k3", "k4", "k6") if "k1_k6" in parts else ()) + (
-        ("k7_k8", "srs_chunk") if "k7_k8" in parts else ())
+        ("k7_k8", "srs_chunk") if "k7_k8" in parts else ()) + (
+        ("k9_k10",) if "k9_k10" in parts else ())
     checks = {f"{k}_same_bytes": len({t[f"{k}_sha256"] for t in turns}) == 1
               for k in same}
     if "k1_k6" in parts:
@@ -413,6 +503,8 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     line = {"turns": turns, **checks, "nvidia_smi": smi}
+    if "k9_k10" in parts:
+        line["k9_k10_summary"] = k9_k10_summary(line)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(line, f, indent=1)

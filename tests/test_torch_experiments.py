@@ -222,6 +222,113 @@ def test_chain_loops_bound_what_the_loop_issues(monkeypatch):
         pytest.approx(128 / 3 * sm_clock)
 
 
+def _listing(name: str, ops) -> str:
+    """`cuobjdump -sass` of one function: ops are opcodes with operands,
+    or ("BRA", label) to branch back to the op at index label."""
+    lines = [f"\t\tFunction : {name}"]
+    for i, op in enumerate(ops):
+        if isinstance(op, tuple):
+            op = f"BRA 0x{0x100 + 16 * op[1]:x}"
+        lines.append(f"        /*{0x100 + 16 * i:04x}*/{' ' * 19}{op} ;")
+    return "\n".join(lines) + "\n"
+
+
+def test_exp_mul_report_weights_loops_and_pipes(monkeypatch):
+    """K9's and K10's SASS an element (chip_smoke.exp_mul_report): B's
+    product once a trip of its loop over n_muls (x4 four times), C's
+    16-step loop 16 times inside it, K10's tile loop once; the issue bound
+    counts IMAD.WIDE twice on the IMAD pipe, a warp's IMMA as MMA_OPS and
+    a warpgroup's IGMMA.MxNxK as 2 M N K at the int8 rate;
+    require_exp_mul holds every kernel to its ptxas line and to no local
+    memory."""
+    import types
+
+    wide = "IMAD.WIDE.U32 R2, R3, R4, R2"
+    sass = (_listing("_Z12mul16_kernelILb0EEvPKjS1_Pjxi5Mod16",
+                     ["LDG.E R3, [R4]", wide, wide, "IADD3 R1, R2, R3, RZ",
+                      ("BRA", 1), "STG.E [R4], R1", "EXIT", ("BRA", 7)])
+            + _listing("_Z12mul16_kernelILb1EEvPKjS1_Pjxi5Mod16",
+                       ["LDG.E R3, [R4]", "LDS R5, [R6]", wide,
+                        ("BRA", 1), "LOP3.LUT R1, R2, 0xffff, RZ, 0xc0, !PT",
+                        ("BRA", 1), "EXIT"])
+            + _listing("_Z14mxu_mul_kernelILi2EEvPKjS1_Pjx5Mod16S1_",
+                       ["LDG.E R3, [R4]", "IMMA.16832.U8.U8 R8, R12, R16, R8",
+                        "SHFL.IDX R1, R2, R3, 0x1f", "IMAD R1, R2, R3, R4",
+                        ("BRA", 1), "EXIT"])
+            + _listing("_Z14mxu_mul_kernelILi3EEvPKjS1_Pjx5Mod16S1_",
+                       ["IGMMA.64x32x32.U8.U8 R24, R8, gdesc[UR4], R24",
+                        "IGMMA.64x64x32.U8.U8 R40, R8, gdesc[UR8], R40",
+                        ("BRA", 0), "EXIT"]))
+    monkeypatch.setattr(chip_smoke.os.path, "exists", lambda path: True)
+    monkeypatch.setattr(chip_smoke.subprocess, "run", lambda *a, **k:
+                        types.SimpleNamespace(stdout=sass))
+    ptxas = {"_Z12mul16_kernelILb0EEvPKjS1_Pjxi5Mod16":
+             {"registers": 80, "stack_bytes": 0},
+             "_Z12mul16_kernelILb1EEvPKjS1_Pjxi5Mod16":
+             {"registers": 60, "stack_bytes": 0},
+             "_Z14mxu_mul_kernelILi2EEvPKjS1_Pjx5Mod16S1_":
+             {"registers": 120, "stack_bytes": 0},
+             "_Z14mxu_mul_kernelILi3EEvPKjS1_Pjx5Mod16S1_":
+             {"registers": 116, "stack_bytes": 0}}
+    rep = chip_smoke.exp_mul_report(ptxas, "libzk.so")
+    by = {chip_smoke.exp_kernel_key(k): v for k, v in rep.items()}
+    b, c, mxu = by["mul16_kernel<0>"], by["mul16_kernel<1>"], \
+        by["mxu_mul_kernel<2>"]
+    assert b["an_element"]["B"] == {"LDG.E": 1, "IMAD.WIDE.U32": 2,
+                                    "IADD3": 1, "BRA": 2, "STG.E": 1,
+                                    "EXIT": 1}
+    assert b["an_element"]["B x4"]["IMAD.WIDE.U32"] == 8
+    assert b["an_element"]["B x40"]["IADD3"] == 40
+    assert c["an_element"]["C"] == {"LDG.E": 1, "LDS": 16,
+                                    "IMAD.WIDE.U32": 16, "BRA": 17,
+                                    "LOP3.LUT": 1, "EXIT": 1}
+    assert c["loops"] == 2 and c["LDL/STL"] == 0 and c["registers"] == 60
+    clk = chip_smoke.issue_clocks(b["an_element"]["B x40"])
+    assert clk["imad"] == 2 * 80 / 64 and clk["alu"] == 40 / 64
+    assert clk["issue"] == (80 + 40 + 40 + 1 + 1 + 1 + 1) / 128
+    ops = mxu["an_element"][""]
+    assert ops["IMMA.16832.U8.U8"] == 1
+    assert chip_smoke.issue_clocks(ops)["tensor"] == pytest.approx(
+        chip_smoke.MMA_OPS / 32 / (chip_smoke.INT8_OPS_PER_S
+                                   / chip_smoke.SM_CLOCKS_PER_S))
+    wg = by["mxu_mul_kernel<3>"]["an_element"][""]
+    assert wg == {"IGMMA.64x32x32.U8.U8": 1, "IGMMA.64x64x32.U8.U8": 1,
+                  "BRA": 1, "EXIT": 1}
+    assert chip_smoke.issue_clocks(wg)["tensor"] == pytest.approx(
+        2 * 64 * (32 + 64) * 32 / 128 / (chip_smoke.INT8_OPS_PER_S
+                                         / chip_smoke.SM_CLOCKS_PER_S))
+    n = 1 << 18
+    ib = chip_smoke.issue_bound(b["an_element"]["B x40"], n, n)
+    assert ib["issue_bound_by"] == "imad"
+    assert ib["issue_bound_ms"] == pytest.approx(
+        clk["imad"] * n / chip_smoke.SM_CLOCKS_PER_S * 1e3)
+    assert chip_smoke.issue_bound(b["an_element"]["B"], n, n * 192)[
+        "issue_bound_by"] == "bytes"
+    lines = {k: (v["registers"], v["stack_bytes"]) for k, v in by.items()}
+    monkeypatch.setattr(chip_smoke, "EXP_MUL_PTXAS", lines)
+    chip_smoke.require_exp_mul(rep)
+    for key, bad in (("stack_bytes", 16), ("LDL/STL", 1), ("registers", 61)):
+        c_bad = dict(c, **{key: bad})
+        with pytest.raises(RuntimeError):
+            chip_smoke.require_exp_mul(dict(rep, **{
+                "_Z12mul16_kernelILb1EEvPKjS1_Pjxi5Mod16": c_bad}))
+    with pytest.raises(RuntimeError):
+        chip_smoke.require_exp_mul(dict(rep, **{
+            "_Z14mxu_mul_kernelILi2EEvPKjS1_Pjx5Mod16S1_": dict(mxu, **{
+                "LDL/STL": 2})}))
+
+
+def test_exp_mul_ragged_runs_every_variant(monkeypatch):
+    """chip_smoke.exp_mul_ragged at small sizes on the CPU (the wrappers'
+    plain versions): K9's B, C and chain x4 and all six K10 variants, at
+    a size 37 short of a power of two and at 100."""
+    monkeypatch.setattr(chip_smoke, "EXP_N_LOG", 7)
+    monkeypatch.setattr(chip_smoke, "EXP_B_LOG", 7)
+    got = chip_smoke.exp_mul_ragged(torch.device("cpu"))
+    assert got == {**{f"K9 {k}": [91, 100] for k in ("B", "C", "B x4")},
+                   **{f"K10 {v}": [91, 100] for v in tmx.VARIANTS}}
+
+
 # ------------------------------------------------------------------ K9
 
 
@@ -328,6 +435,419 @@ def test_exp_mul_vectors_are_live_jax():
     import gen_torch_port_vectors as gen
 
     assert gen.part_exp_mul()["exp_mul"] == _exp_mul_vectors()
+
+
+# ------------------------------------------------------------------ K9/K10
+# numpy models of the kernels' arithmetic order (csrc/mont16.cuh,
+# csrc/exp_mul_mxu.cu), held to the plain versions and the JAX kernels
+
+
+def _limb_cases(p: int, seed: int, n: int = 64) -> np.ndarray:
+    """[16, n] uint64 16-bit limbs: all 0xFFFF, p - 1, 0, 1, then seeded
+    values of all 16-bit limbs."""
+    x = np.random.default_rng(seed).integers(0, 1 << 16, (16, n),
+                                             dtype=np.uint64)
+    for j, v in enumerate(((1 << 256) - 1, p - 1, 0, 1)):
+        x[:, j] = [(v >> (16 * i)) & 0xFFFF for i in range(16)]
+    return x
+
+
+def _transcription(a, b, p):
+    """The uint32 transcription of `mul_b` (conv_schoolbook, word_redc) in
+    exact integers: (out, the 16 m's, the largest column it ever holds)."""
+    pl = [(p >> (16 * i)) & 0xFFFF for i in range(16)]
+    n0 = tmx.n0_16(p)
+    cols = np.zeros((33, a.shape[1]), np.uint64)
+    for i in range(16):
+        prod = a[i] * b
+        cols[i:i + 16] += prod & 0xFFFF
+        cols[i + 1:i + 17] += prod >> 16
+    top = cols.max()
+    ms = []
+    for i in range(16):
+        m = (cols[i] * n0) & 0xFFFF
+        ms.append(m)
+        for j in range(16):
+            prod = m * pl[j]
+            cols[i + j] += prod & 0xFFFF
+            cols[i + j + 1] += prod >> 16
+        cols[i + 1] += cols[i] >> 16
+        top = max(top, cols.max())
+    carry = np.zeros_like(cols[0])
+    out = []
+    for i in range(16):
+        tot = cols[16 + i] + carry
+        top = max(top, tot.max())
+        out.append(tot & 0xFFFF)
+        carry = tot >> 16
+    return _cond_sub(np.stack(out), carry + cols[32], pl), ms, int(top)
+
+
+def _cond_sub(out, carry, pl):
+    """mont16.cuh's cond_sub16: out - p limbwise mod 2^16 where carry or
+    out - p borrows nothing."""
+    borrow = np.zeros_like(out[0])
+    d = []
+    for i in range(16):
+        t = (out[i] - pl[i] - borrow) & 0xFFFFFFFF
+        d.append(t & 0xFFFF)
+        borrow = t >> 31
+    ge = (carry != 0) | (borrow == 0)
+    return np.where(ge, np.stack(d), out)
+
+
+def _interleaved(a, b, p):
+    """mont16.cuh's order: whole products summed in 64-bit columns, REDC
+    step i right after schoolbook row i on a window of 16 columns ->
+    (out, the 16 m's, the largest column)."""
+    pl = [(p >> (16 * i)) & 0xFFFF for i in range(16)]
+    n0 = tmx.n0_16(p)
+    w = np.zeros((16, a.shape[1]), np.uint64)
+    ms, top = [], 0
+    for i in range(16):
+        t0 = w[0] + a[i] * b[0]
+        m = ((t0 & 0xFFFFFFFF) * n0) & 0xFFFF
+        ms.append(m)
+        t0 = t0 + m * pl[0]
+        assert not (t0 & 0xFFFF).any()
+        new = np.zeros_like(w)
+        new[0] = w[1] + a[i] * b[1] + m * pl[1] + (t0 >> 16)
+        for j in range(2, 16):
+            new[j - 1] = w[j] + a[i] * b[j] + m * pl[j]
+        w = new
+        top = max(top, int(w.max()), int(t0.max()))
+    carry = np.zeros_like(w[0])
+    out = []
+    for k in range(16):
+        v = w[k] + carry
+        out.append(v & 0xFFFF)
+        carry = v >> 16
+    return _cond_sub(np.stack(out), carry, pl), ms, top
+
+
+@pytest.mark.parametrize("field", ["fq", "fr"])
+def test_whole_product_order_matches_the_transcription(field):
+    """The invariant K9's and K10's products rely on: on 16-bit limbs no
+    uint32 column of the transcription wraps (every column, schoolbook and
+    REDC steps, stays below 2^24), so it computes in exact integers; the
+    kernels' order (whole products in 64-bit columns, the REDC
+    interleaved) then gives the same m's and the same bits, which are
+    those of the plain version and of JAX `mul_b`."""
+    p = tmv.FQ.p if field == "fq" else tmx.FR.p
+    a, b = _limb_cases(p, 21), _limb_cases(p, 22)[:, ::-1].copy()
+    want, ms, top = _transcription(a, b, p)
+    assert top < 1 << 24
+    got, ms2, top2 = _interleaved(a, b, p)
+    assert top2 < 1 << 38
+    assert all(np.array_equal(x, y) for x, y in zip(ms, ms2))
+    assert np.array_equal(got, want)
+    plain = tmv.mul_limb_major_plain(
+        torch.from_numpy(a.astype(np.uint32).view(np.int32)),
+        torch.from_numpy(b.astype(np.uint32).view(np.int32)), p)
+    assert np.array_equal(_u32(plain), want.astype(np.uint32))
+    jmv = _script("exp_mul_variants")
+    if field == "fq":  # the script's modulus
+        with jax.disable_jit():
+            jax_out = np.asarray(jmv.mul_b(
+                jnp.asarray(a.astype(np.uint32)),
+                jnp.asarray(b.astype(np.uint32)),
+                jnp.asarray(jmv.P_COL)))
+        assert np.array_equal(jax_out, want.astype(np.uint32))
+
+
+def _conv_wide(a, b):
+    """Whole-product columns (csrc/exp_mul_mxu.cu conv_wide), int64."""
+    n = len(a)
+    cols = [np.zeros_like(a[0]) for _ in range(2 * n - 1)]
+    for i in range(n):
+        for j in range(n):
+            cols[i + j] = cols[i + j] + a[i] * b[j]
+    return cols
+
+
+def _conv_kar(a, b, n=16, depth=2):
+    """conv_kar on whole-product columns: every column, and every middle
+    term z1 - z0 - z2, nonnegative."""
+    if depth == 0 or n <= 4:
+        return _conv_wide(a, b)
+    h = n // 2
+    z0 = _conv_kar(a[:h], b[:h], h, depth - 1)
+    z2 = _conv_kar(a[h:], b[h:], h, depth - 1)
+    z1 = _conv_wide([a[i] + a[h + i] for i in range(h)],
+                    [b[i] + b[h + i] for i in range(h)])
+    out = [np.zeros_like(a[0]) for _ in range(2 * n - 1)]
+    for i in range(2 * h - 1):
+        mid = z1[i] - z0[i] - z2[i]
+        assert (mid >= 0).all()
+        out[i] = out[i] + z0[i]
+        out[i + 2 * h] = out[i + 2 * h] + z2[i]
+        out[i + h] = out[i + h] + mid
+    return out
+
+
+def _split_columns(a, b, nc):
+    """The schoolbook's split columns from whole-product sums (csrc/
+    exp_mul_mxu.cu split_columns): L_k mod 2^32, H_k the high halves,
+    column k = L_k - 2^16 H_k + H_{k-1} mod 2^32."""
+    L = [np.zeros_like(a[0]) for _ in range(nc)]
+    H = [np.zeros_like(a[0]) for _ in range(nc)]
+    for i in range(16):
+        ah = (a[i] << 16) & 0xFFFFFFFF
+        for j in range(16):
+            if i + j < nc:
+                L[i + j] = (L[i + j] + a[i] * b[j]) & 0xFFFFFFFF
+                H[i + j] = (H[i + j] + ((ah * b[j]) >> 32)) & 0xFFFFFFFF
+    return [(L[k] - (H[k] << 16) + (H[k - 1] if k else 0)) & 0xFFFFFFFF
+            for k in range(nc)]
+
+
+def test_product_columns_match_the_plain_ones():
+    """K10's products: Karatsuba on whole-product columns (17-bit middle
+    limbs, every term nonnegative) gives the schoolbook's whole-product
+    columns; the ablations' split columns from the whole-product sums and
+    their high halves are conv_schoolbook's, bit for bit."""
+    p = tmx.FR.p
+    a = _limb_cases(p, 31).astype(np.int64)
+    b = _limb_cases(p, 32)[:, ::-1].astype(np.int64)
+    assert all(np.array_equal(x, y) for x, y in
+               zip(_conv_kar(list(a), list(b)), _conv_wide(list(a), list(b))))
+    want = tmx.conv_schoolbook(torch.from_numpy(a), torch.from_numpy(b))
+    got = _split_columns(list(a), list(b), 32)
+    assert np.array_equal(np.stack(got), want[:32].numpy())
+    assert not want[32].any()  # no product reaches column 32
+
+
+def _quad_carry(w, nd):
+    """csrc/exp_mul_mxu.cu quad_carry over the four threads of a quad, w
+    [4][nd] (thread t the columns nd t ..): (digits [4][nd], the carry out
+    of each thread's columns)."""
+    d, c = [[0] * nd for _ in range(4)], [0] * 4
+    for t in range(4):
+        for k in range(nd):
+            v = w[t][k] + c[t]
+            d[t][k], c[t] = v & 0xFFFF, v >> 16
+    need = [0x10000 - d[t][0] if all(x == 0xFFFF for x in d[t][1:])
+            else 0xFFFFFFFF for t in range(4)]
+    cin = [0] * 4
+    for r in range(1, 4):  # the three shuffles
+        cin[r] = c[r - 1] + (cin[r - 1] >= need[r - 1])
+    out = []
+    for t in range(4):
+        x = cin[t]
+        for k in range(nd):
+            v = d[t][k] + x
+            d[t][k], x = v & 0xFFFF, v >> 16
+        out.append(c[t] + x)
+    return d, out
+
+
+@pytest.mark.parametrize("nd", [4, 8])
+def test_quad_carry_is_the_carry_pass(nd):
+    """The quad's carry pass (each thread its columns, three carries
+    passed along) gives a serial pass's digits and carry, on seeded
+    columns below 2^30 and on runs of 0xFFFF that carry through a whole
+    thread."""
+    rng = random.Random(nd)
+    for case in range(400):
+        if case % 2:
+            w = [[rng.randrange(1 << 30) for _ in range(nd)] for _ in range(4)]
+        else:  # digits of 0xFFFF, a carry in at the bottom
+            w = [[0xFFFF] * nd for _ in range(4)]
+            w[0][0] = rng.randrange(1 << 30)
+            for _ in range(rng.randrange(4)):
+                w[rng.randrange(4)][rng.randrange(nd)] = rng.randrange(1 << 17)
+        d, c = _quad_carry(w, nd)
+        total = sum(x << (16 * i) for i, x in
+                    enumerate(v for row in w for v in row))
+        want = [(total >> (16 * i)) & 0xFFFF for i in range(4 * nd)]
+        assert [x for row in d for x in row] == want
+        assert c[3] == total >> (64 * nd)
+
+
+def _mma(a_regs, b_regs):
+    """mma.sync m16n8k32 u8 x u8 -> s32 from the 32 lanes' fragments (the
+    PTX layouts: A row g (+8 for a1, a3), bytes 4t (+16 for a2, a3); B
+    column g, bytes 4t (+16 for b1); D rows g, g + 8, columns 2t, 2t + 1)."""
+    A = np.zeros((16, 32), np.int64)
+    B = np.zeros((32, 8), np.int64)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for r in range(4):
+            for i in range(4):
+                A[g + 8 * (r & 1), 4 * t + 16 * (r >> 1) + i] = (
+                    int(a_regs[lane][r]) >> (8 * i)) & 0xFF
+        for h in range(2):
+            for i in range(4):
+                B[4 * t + 16 * h + i, g] = (int(b_regs[lane][h]) >> (8 * i)) & 0xFF
+    D = A @ B
+    return [[int(D[g, 2 * t]), int(D[g, 2 * t + 1]), int(D[g + 8, 2 * t]),
+             int(D[g + 8, 2 * t + 1])]
+            for g, t in ((lane >> 2, lane & 3) for lane in range(32))]
+
+
+def _tc_redc(rows, p, split):
+    """csrc/exp_mul_mxu.cu tc_redc for one tile of 32 elements, lane by
+    lane: rows [32][16] the lanes' digit words -> out [16][32]."""
+    tab = tmx.fragment_tables(p)
+    pl = [(p >> (16 * i)) & 0xFFFF for i in range(16)]
+    smem = {}
+
+    def slot(r, q):
+        return r * 4 + (q ^ ((r >> 1) & 3))
+
+    for lane in range(32):
+        for q in range(4):
+            for i in range(4):
+                smem[slot(lane, q) * 4 + i] = rows[lane][4 * q + i]
+
+    def word(r, w):
+        return smem[slot(r, w >> 2) * 4 + (w & 3)]
+
+    def nmat(nt, ks, h):
+        r = (tmx.TAB_NMAT_SPLIT + 4 * nt + 2 * ks + h if split
+             else tmx.TAB_NMAT + 2 * nt + h)
+        return tab[r]
+
+    out = [[None] * 32 for _ in range(16)]
+    lanes = [(lane >> 2, lane & 3) for lane in range(32)]
+    for mt in range(2):
+        dm = [[[0] * 4 for _ in range(32)] for _ in range(4)]
+        for ks in range(2 if split else 1):
+            a = [[word(16 * mt + g, 8 * ks + t), word(16 * mt + g + 8, 8 * ks + t),
+                  word(16 * mt + g, 8 * ks + 4 + t),
+                  word(16 * mt + g + 8, 8 * ks + 4 + t)] for g, t in lanes]
+            for nt in range(4):
+                b = [[nmat(nt, ks, 0)[lane], nmat(nt, ks, 1)[lane]]
+                     for lane in range(32)]
+                d = _mma(a, b)
+                for lane in range(32):
+                    for r in range(4):
+                        dm[nt][lane][r] += d[lane][r]
+        mw = [[[0, 0], [0, 0]] for _ in range(32)]
+        for h in range(2):
+            if split:
+                for lane in range(32):
+                    for x in range(2):
+                        mw[lane][h][x] = sum(
+                            (dm[(4 * x + i) >> 1][lane][2 * h + (i & 1)] & 0xFF)
+                            << (8 * i) for i in range(4))
+            else:
+                for quad in range(0, 32, 4):
+                    w = [[dm[c][quad + t][2 * h] + (dm[c][quad + t][2 * h + 1] << 8)
+                          for c in range(4)] for t in range(4)]
+                    d, _ = _quad_carry(w, 4)
+                    for t in range(4):
+                        mw[quad + t][h] = [d[t][0] | (d[t][1] << 16),
+                                           d[t][2] | (d[t][3] << 16)]
+        af = [[mw[(lane & ~3) | ((f >> 1) * 2 + (t >> 1))][f & 1][t & 1]
+               for f in range(4)] for lane, (g, t) in enumerate(lanes)]
+        dp = [_mma(af, [[tab[tmx.TAB_PMAT + 2 * nt][lane],
+                         tab[tmx.TAB_PMAT + 2 * nt + 1][lane]]
+                        for lane in range(32)]) for nt in range(8)]
+        for h in range(2):
+            for quad in range(0, 32, 4):
+                g = quad >> 2
+                e = 16 * mt + g + 8 * h
+                if split:
+                    for t in (0, 2):
+                        upper = t >> 1
+                        for i in range(8):
+                            low = dp[i >> 1][quad + t][2 * h + (i & 1)]
+                            high = dp[(8 + i) >> 1][quad + t][2 * h + (i & 1)]
+                            o_low = dp[i >> 1][quad + (t ^ 2)][2 * h + (i & 1)]
+                            o_high = dp[(8 + i) >> 1][quad + (t ^ 2)][2 * h + (i & 1)]
+                            # the partner (t ^ 2) gives its low if it is
+                            # the upper one, else its high
+                            out[8 * upper + i][e] = ((high if upper else low)
+                                                     ^ (o_high if upper else o_low))
+                    continue
+                w = []
+                for t in range(4):
+                    tw = [word(e, 4 * t + q) for q in range(4)]
+                    w.append([dp[c][quad + t][2 * h]
+                              + (dp[c][quad + t][2 * h + 1] << 8)
+                              + ((tw[c >> 1] >> (16 * (c & 1))) & 0xFFFF)
+                              for c in range(8)])
+                d, c = _quad_carry(w, 8)
+                u = d[2] + d[3]
+                res = _cond_sub(np.array(u, np.uint64)[:, None],
+                                np.array([c[3]], np.uint64), pl)[:, 0]
+                for i in range(16):
+                    out[i][e] = int(res[i])
+    return np.array(out, np.uint64)
+
+
+@pytest.mark.parametrize("variant", ["mxu", "kar+mxu", "mxunocarry"])
+def test_tensor_core_redc_model_matches_the_plain_version(variant):
+    """A lane-by-lane model of the kernel's tensor-core REDC (its shared
+    rows and swizzle, the packed fragments, the D layout with B's columns
+    permuted, the quad's carries and shuffles, the conditional subtract on
+    two threads) gives the plain version's bits on a tile of 32 elements
+    of 16-bit limbs, all 0xFFFF and p - 1 among them."""
+    p = tmx.FR.p
+    a, b = _limb_cases(p, 41, 32), _limb_cases(p, 42, 32)[:, ::-1].copy()
+    ai, bi = list(a.astype(np.int64)), list(b.astype(np.int64))
+    rows = []
+    if variant == "mxunocarry":
+        cols = _split_columns(ai, bi, 16)
+        comps = [(int(cols[c // 3][e]) >> (8 * (c % 3))) & 0xFF if c < 48
+                 else 0 for e in range(32) for c in range(64)]
+        rows = [[sum(comps[64 * e + 4 * w + q] << (8 * q) for q in range(4))
+                 for w in range(16)] for e in range(32)]
+    else:
+        cols = (_conv_kar(ai, bi) if variant == "kar+mxu"
+                else _conv_wide(ai, bi))
+        for e in range(32):
+            t = sum(int(c[e]) << (16 * k) for k, c in enumerate(cols))
+            rows.append([(t >> (32 * w)) & 0xFFFFFFFF for w in range(16)])
+    got = _tc_redc(rows, p, variant == "mxunocarry")
+    want = tmx.mont_mul_mxu_plain(
+        torch.from_numpy(a.astype(np.uint32).view(np.int32)),
+        torch.from_numpy(b.astype(np.uint32).view(np.int32)), variant, p)
+    assert np.array_equal(got.astype(np.uint32), _u32(want))
+
+
+def test_fragment_tables_unpack_to_the_script_matrices():
+    """The packed B fragments (fragment_tables), read back through the
+    m16n8k32 B layout and the positions of B's columns, are mxu_tables'
+    matrices: PMAT whole; NMAT's columns at each component's byte position
+    (the table on T's bytes) and NMAT padded to K = 64 (the ablation's);
+    every position is some column of some n tile exactly once."""
+    p = tmx.FR.p
+    comps, nmat, pmat = tmx.mxu_tables(p)
+    tab = tmx.fragment_tables(p)
+    assert tab.shape == (tmx.TAB_ROWS, 32) and tab.dtype == np.uint32
+
+    def unpack(rows_of, n_tiles, k, position):
+        mat = np.full((8 * n_tiles, k), -1, np.int64)
+        for nt in range(n_tiles):
+            for ks in range(k // 32):
+                for lane in range(32):
+                    g, t = lane >> 2, lane & 3
+                    for h in range(2):
+                        reg = int(tab[rows_of(nt, ks, h), lane])
+                        for i in range(4):
+                            col = 32 * ks + 16 * h + 4 * t + i
+                            assert mat[position(nt, g), col] in (-1, (reg >> (8 * i)) & 0xFF)
+                            mat[position(nt, g), col] = (reg >> (8 * i)) & 0xFF
+        assert (mat >= 0).all()  # every position and byte filled
+        return mat
+
+    got_p = unpack(lambda nt, ks, h: tmx.TAB_PMAT + 2 * nt + h, 8, 32,
+                   tmx.mp_position)
+    assert np.array_equal(got_p, pmat)
+    got_n = unpack(lambda nt, ks, h: tmx.TAB_NMAT + 2 * nt + h, 4, 32,
+                   tmx.m_position)
+    for r, (k, d) in enumerate(comps):
+        assert np.array_equal(got_n[:, 2 * k + d], nmat[:, r])
+    got_s = unpack(lambda nt, ks, h: tmx.TAB_NMAT_SPLIT + 4 * nt + 2 * ks + h,
+                   4, 64, tmx.m_position)
+    assert np.array_equal(got_s[:, :len(comps)], nmat)
+    assert not got_s[:, len(comps):].any()
+    assert sorted(tmx.m_position(nt, n) for nt in range(4)
+                  for n in range(8)) == list(range(32))
+    assert sorted(tmx.mp_position(nt, n) for nt in range(8)
+                  for n in range(8)) == list(range(64))
 
 
 # ------------------------------------------------------------------ mains

@@ -10,7 +10,8 @@ operands limb-major [16, B] (16-bit limbs in int32):
                 carries them as uint32 and is wrong on a few inputs)
   mxu        -- schoolbook + the REDC as two products by fixed Toeplitz
                 matrices of n' and p, on the tensor cores (u8 digits, s32
-                accumulator: exact)
+                accumulator: exact; the matrices packed as the kernel's
+                fragments by `fragment_tables`)
   kar+mxu    -- both (Karatsuba's signed columns carried into nonnegative
                 ones before the digit split; the JAX kernel skips that and
                 is wrong on every input)
@@ -74,14 +75,65 @@ def mxu_tables(p: int):
     return comps, nmat, pmat
 
 
+# The kernel's `mma.sync` m16n8k32 has the elements as its M rows and the
+# output positions as its N columns, so NMAT and PMAT are its B operands.
+# Column n of n tile nt stands for position m_position(nt, n) of m and
+# mp_position(nt, n) of m * p: thread t of a quad then holds positions
+# 8t..8t+7 of m and 16t..16t+15 of m * p (csrc/exp_mul_mxu.cu).
+
+def m_position(nt: int, n: int) -> int:
+    return 8 * (n >> 1) + 2 * nt + (n & 1)
+
+
+def mp_position(nt: int, n: int) -> int:
+    return 16 * (n >> 1) + 2 * nt + (n & 1)
+
+
+TAB_PMAT, TAB_NMAT, TAB_NMAT_SPLIT, TAB_ROWS = 0, 16, 24, 40
+
+
+@functools.cache
+def fragment_tables(p: int) -> np.ndarray:
+    """NMAT and PMAT as the kernel's B fragments, uint32 [TAB_ROWS, 32]
+    (row r of lane l = g * 4 + t: register r of lane l; each register four
+    bytes B[4t + 16h .. +3][n = g], B[k][n] the matrix's entry at row
+    position(nt, g), column k):
+
+      rows 0..15   PMAT [64, 32], n tile nt, half h at 2 nt + h;
+      rows 16..23  NMAT on T's 32 bytes, [32, 32] (the column of each
+                   component at its byte position 2k + d), 2 nt + h;
+      rows 24..39  NMAT on the ablation's components, padded to K = 64,
+                   4 nt + 2 ks + h (k step ks)."""
+    comps, nmat, pmat = mxu_tables(p)
+    by_pos = np.zeros((32, 32), np.uint8)
+    for r, (k, d) in enumerate(comps):
+        by_pos[:, 2 * k + d] = nmat[:, r]
+    split = np.zeros((32, 64), np.uint8)
+    split[:, :nmat.shape[1]] = nmat
+
+    def frag(mat, row, k0):
+        return int.from_bytes(mat[row, k0:k0 + 4].tobytes(), "little")
+
+    tab = np.zeros((TAB_ROWS, 32), np.uint32)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for h in range(2):
+            for nt in range(8):
+                tab[TAB_PMAT + 2 * nt + h, lane] = frag(
+                    pmat, mp_position(nt, g), 16 * h + 4 * t)
+            for nt in range(4):
+                tab[TAB_NMAT + 2 * nt + h, lane] = frag(
+                    by_pos, m_position(nt, g), 16 * h + 4 * t)
+                for ks in range(2):
+                    tab[TAB_NMAT_SPLIT + 4 * nt + 2 * ks + h, lane] = frag(
+                        split, m_position(nt, g), 32 * ks + 16 * h + 4 * t)
+    return tab
+
+
 @functools.lru_cache(maxsize=8)
-def _device_tables(p: int, device: str):
-    """NMAT padded to K = 64 and PMAT, uint8 on the card."""
-    _, nmat, pmat = mxu_tables(p)
-    padded = np.zeros((32, 64), np.uint8)
-    padded[:, :nmat.shape[1]] = nmat
-    return (torch.from_numpy(padded).to(device),
-            torch.from_numpy(pmat.copy()).to(device))
+def _device_tables(p: int, device: str) -> torch.Tensor:
+    """fragment_tables(p) on the card (int32, the same bits)."""
+    return torch.from_numpy(fragment_tables(p).view(np.int32)).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -217,8 +269,10 @@ def mont_mul_mxu_plain(a: torch.Tensor, b: torch.Tensor, variant: str,
 def mont_mul_mxu(a: torch.Tensor, b: torch.Tensor, variant: str,
                  p: int) -> torch.Tensor:
     """One variant of the experiment mod p over [16, B] limb-major int32
-    operands of 16-bit limbs (kernel K10).  The four product variants
-    return a * b * 2^-256 mod p for inputs below p."""
+    operands of 16-bit limbs (kernel K10; each limb below 2^16, the
+    domain on which the kernel returns the plain version's bits).  The
+    four product variants return a * b * 2^-256 mod p for inputs below
+    p."""
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r}")
     n = limb_major(a, "a")
@@ -229,14 +283,14 @@ def mont_mul_mxu(a: torch.Tensor, b: torch.Tensor, variant: str,
         return mont_mul_mxu_plain(a, b, variant, p)
     from .. import kernels
 
-    nmat, pmat = _device_tables(p, str(a.device))
+    tab = _device_tables(p, str(a.device))
     out = torch.empty_like(a)
-    with kernels.on_device(a, b, out, nmat, pmat) as stream:
+    with kernels.on_device(a, b, out, tab) as stream:
         err = kernels.library().zk_exp_mxu_mul(
             VARIANTS.index(variant), kernels.operand(a, torch.int32, (16, n)),
             kernels.operand(b, torch.int32, (16, n)),
             kernels.operand(out, torch.int32, (16, n)), n,
-            kernels.mod16_ptr(p), nmat.data_ptr(), pmat.data_ptr(), stream)
+            kernels.mod16_ptr(p), tab.data_ptr(), stream)
     kernels.check(err, "zk_exp_mxu_mul")
     mont_mul_mxu.launches += 1
     return out

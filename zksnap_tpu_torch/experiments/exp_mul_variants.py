@@ -7,9 +7,11 @@ operands limb-major [16, n] (16-bit limbs in int32):
   A: the production kernel K1 (csrc/mont.cu, 8x32-bit CIOS) on the same
      values in the port's [n, 16] rows;
   B: the TPU experiment's 16-bit schoolbook and word REDC, one thread an
-     element, fully unrolled (csrc/exp_mul_variants.cu);
-  C: B with rolled loops: the columns in local memory (the TPU's dead end:
-     Mosaic could not lower it);
+     element, fully unrolled (csrc/exp_mul_variants.cu; whole products in
+     64-bit columns, the REDC interleaved, csrc/mont16.cuh);
+  C: B as a rolled loop of 16 steps (the TPU's dead end: Mosaic could not
+     lower it), its columns in registers, a's limbs read from shared
+     memory;
   B chain xn: n dependent products a thread, the compute-bound rate.
 
 `mul_limb_major` launches B, C and the chains on CUDA tensors and runs its
@@ -51,7 +53,8 @@ def mul_limb_major(a: torch.Tensor, b: torch.Tensor, p: int,
     """n_muls dependent Montgomery products x <- x * b * 2^-256 mod p (one
     conditional subtract each), x = a at first, over [16, n] limb-major
     int32 operands of 16-bit limbs (kernel K9: variant B, or C if
-    `rolled`)."""
+    `rolled`).  The kernel returns the plain version's bits where every
+    limb is below 2^16, its domain."""
     n = limb_major(a, "a")
     if a.shape != b.shape or a.device != b.device:
         raise ValueError(f"operands {tuple(a.shape)} on {a.device} and "

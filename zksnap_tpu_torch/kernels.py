@@ -47,7 +47,7 @@ _SIGNATURES = {
     "zk_exp_chain": [_I, _P, _P, _P, _LL, _I, _P],
     "zk_exp_dot": [_I, _P, _P, _P, _I, _I, _P],
     "zk_exp_mul16": [_P, _P, _P, _LL, _I, _I, _P, _P],
-    "zk_exp_mxu_mul": [_I, _P, _P, _P, _LL, _P, _P, _P, _P],
+    "zk_exp_mxu_mul": [_I, _P, _P, _P, _LL, _P, _P, _P],
 }
 
 
