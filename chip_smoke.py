@@ -7,6 +7,8 @@ Phases:
   1. build the eleven hand-written CUDA kernels from csrc/ (one nvcc for
      each source, all started together, timed; ptxas registers and
      spills logged; the main loop of each K11 chain from cuobjdump -sass;
+     K11's dot kernels' step loops (dot_report: a 0-byte frame each and
+     no LDS/STS in a step);
      K4's and K5's kernels' registers, stack frames and SASS instruction
      mix; K3's six kinds and K6's RCB kernel required inlined: a 0-byte
      stack frame and no CALL and no LDL/STL in their SASS; K1's kernels
@@ -48,7 +50,9 @@ Phases:
      each kernel against its plain version at those shapes (bit-exact,
      bf16dot within BF16_TOL), with the mains' times a call and the
      profiler's device times, K11's rates read again over a chain of
-     RATE_CHAIN steps (CUDA events) and the dots' library yardstick;
+     RATE_CHAIN steps (CUDA events) and the dots' library yardstick; the
+     K11 dots again at every width of DOT_CHECK_W (ragged ones among
+     them);
   3. K=7 parity with the frozen JAX vectors: the port's keygen gives the
      frozen vk digest, the port's verifier accepts the frozen proof, and
      a second keygen with ZKSNAP_TPU_FUSED_REDUCE=1 (every commit through
@@ -1590,6 +1594,110 @@ def limb_rows(rng, n: int, top_mask: int, dev, edge=()) -> torch.Tensor:
 # 512; K9 at n = 2^20 (chains at n / 4); K10 at B = 2^18
 EXP_W_LOG, EXP_CHAIN, EXP_N_LOG, EXP_B_LOG = 14, 512, 20, 18
 RATE_CHAIN = 16384  # K11's chains again, long enough to read a rate
+# K11's dots are held to their plain versions at these widths: the script's
+# 2^14, the docstring's 2^18, and two off every multiple of 64, so a
+# 64-column tile runs with idle rows (2^14 - 8: 56 columns; 72: 8)
+DOT_CHECK_W = (1 << 14, 1 << 18, (1 << 14) - 8, 72)
+
+
+def dot_sides(rng, kind: str, W: int):
+    """numpy (L, x0) of a K11 dot as the script draws them: i8dot in
+    [-8, 8); bf16dot L standard normal, x0 normal * 0.1."""
+    if kind == "i8dot":
+        return (rng.integers(-8, 8, (64, 32)).astype(np.int8),
+                rng.integers(-8, 8, (32, W)).astype(np.int8))
+    return (rng.standard_normal((64, 32)).astype(np.float32),
+            (rng.standard_normal((32, W)) * 0.1).astype(np.float32))
+
+
+def dot_bound(kind: str, W: int, n_mm: int) -> dict:
+    """bound() of a K11 dot: 2 * 64 * 32 * W operations a product at the
+    tensor cores' int8 or bf16 rate; L and x0 read and acc written once."""
+    side = 1 if kind == "i8dot" else 2
+    nbytes = 64 * 32 * (1 if kind == "i8dot" else 4) + 32 * W * side \
+        + 64 * W * 4
+    return bound(2 * 64 * 32 * W * n_mm, nbytes,
+                 INT8_OPS_PER_S if kind == "i8dot" else BF16_OPS_PER_S)
+
+
+def dot_error(kind: str, got, want):
+    """A K11 dot against its plain version: i8dot's largest difference,
+    which must be 0; bf16dot's relative to max |acc|, at most BF16_TOL."""
+    if kind == "i8dot":
+        err = max_abs_err([got], [want])
+        require(err == 0, ("K11 i8dot", err))
+        return err
+    err = float((got - want).abs().max() / want.abs().max())
+    require(err <= BF16_TOL, ("K11 bf16dot", err, BF16_TOL))
+    return err
+
+
+def tensor_macs(op: str) -> int:
+    """Multiply-adds that one warp issues in a tensor-core instruction:
+    M N K of an `mma.sync` (IMMA.16832, HMMA.16816), a quarter of a
+    warpgroup's `wgmma` (IGMMA.64x64x32, HGMMA.64x64x16); 0 otherwise."""
+    m = re.match(r"[IH]GMMA\.(\d+)x(\d+)x(\d+)", op)
+    if m:
+        return math.prod(map(int, m.groups())) // 4
+    m = re.match(r"[IH]MMA\.(16)(8)(\d+)", op)
+    return math.prod(map(int, m.groups())) if m else 0
+
+
+def dot_report(ptxas: dict, lib_path: str) -> dict:
+    """{K11 dot kernel: its ptxas line, the LDL/STL of its listing, and its
+    step loop (the innermost loop with tensor-core instructions): the
+    opcodes of one trip, the steps a trip (the trip's
+    multiply-adds over a step's: a warp's columns x 64 x 32, times
+    exp_vpu_rates.DOT_PRODUCTS_A_STEP) and, for one step, its
+    tensor-core instructions, LDS/STS, BAR and WARPSYNC}."""
+    from zksnap_tpu_torch.experiments import exp_vpu_rates as vr
+
+    step_macs = (getattr(vr, "DOT_COLUMNS_A_WARP", 8) * 64 * 32
+                 * getattr(vr, "DOT_PRODUCTS_A_STEP", 1))
+    out = {}
+    for name, instrs in sass_functions(lib_path).items():
+        if "dot_chain" not in name:
+            continue
+        ops, macs, span = {}, 0, None
+        for lo, hi in loop_spans(instrs):
+            body = [o for ad, o, _ in instrs
+                    if lo <= ad <= hi and o.split(".")[0] != "BRA"]
+            m = sum(tensor_macs(o) for o in body)
+            if m and (span is None or hi - lo < span):
+                ops = {o: body.count(o) for o in sorted(set(body))}
+                macs, span = m, hi - lo
+        steps = macs / step_macs
+
+        def a_step(pred):
+            n = sum(c for o, c in ops.items() if pred(o.split(".")[0]))
+            return n / steps if steps else None
+
+        out[name] = {
+            **{k: ptxas.get(name, {}).get(k) for k in (
+                "registers", "stack_bytes", "spill_stores", "spill_loads")},
+            "LDL/STL": sum(o.split(".")[0] in ("LDL", "STL")
+                           for _, o, _ in instrs),
+            "steps_a_trip": steps, "trip": ops,
+            "a_step": {
+                "tensor": a_step(lambda b: b in ("IMMA", "HMMA", "IGMMA",
+                                                  "HGMMA")),
+                "LDS/STS": a_step(lambda b: b in ("LDS", "STS")),
+                "BAR": a_step(lambda b: b == "BAR"),
+                "WARPSYNC": a_step(lambda b: b == "WARPSYNC"),
+                "all": a_step(lambda b: True)}}
+    return out
+
+
+def require_dots(report: dict):
+    """K11's two dot kernels (i8dot, bf16dot): a 0-byte stack frame, no
+    LDL/STL, and a step loop with its tensor-core instructions and no
+    LDS/STS."""
+    require(len(report) == 2, ("K11 dot kernels", sorted(report)))
+    for name, r in report.items():
+        require(r["stack_bytes"] == 0 and r["LDL/STL"] == 0
+                and r["a_step"]["tensor"] and r["a_step"]["LDS/STS"] == 0,
+                ("K11 dot kernel's frame, local memory or step loop", name,
+                 r))
 
 
 def exp_mul_ragged(dev) -> dict:
@@ -1713,24 +1821,13 @@ def phase_experiments(dev, results, loops: dict, exp_report: dict) -> dict:
 
     # K11 dots: [64, 32] x [32, 2^14], 64 products in a chain
     n_mm = vr.N_MM
-    sides = {"i8dot": (rng.integers(-8, 8, (64, 32)).astype(np.int8),
-                       rng.integers(-8, 8, (32, W)).astype(np.int8)),
-             "bf16dot": (rng.standard_normal((64, 32)).astype(np.float32),
-                         (rng.standard_normal((32, W)) * 0.1).astype(
-                             np.float32))}
+    sides = {kind: dot_sides(rng, kind, W) for kind in vr.DOT_KINDS}
     for kind in vr.DOT_KINDS:
         go, (lhs, x0) = vr.make_dot(kind, W, n_mm, *sides[kind], device=dev)
         got = go(lhs, x0)
         want, plain_ms = timed(lambda: vr.dot_chain_plain(kind, lhs, x0,
                                                           n_mm))
-        if kind == "i8dot":
-            err = max_abs_err([got], [want])
-            require(err == 0, ("K11 i8dot", err))
-            rate = INT8_OPS_PER_S
-        else:
-            err = float((got - want).abs().max() / want.abs().max())
-            require(err <= BF16_TOL, ("K11 bf16dot", err, BF16_TOL))
-            rate = BF16_OPS_PER_S
+        err = dot_error(kind, got, want)
 
         def library(kind=kind, lhs=lhs, x0=x0):
             """The same chain through torch._int_mm / torch.matmul: a
@@ -1753,11 +1850,10 @@ def phase_experiments(dev, results, loops: dict, exp_report: dict) -> dict:
             exact=kind == "i8dot", ms=lines["exp_vpu_rates"][kind]["ms"],
             plain_ms=plain_ms, library_ms=cuda_ms(library, 20),
             device_ms=kernel_device_ms(lambda: go(lhs, x0),
-                                       "dot_chain_" + kind[:-3]),
+                                       "dot_chain_kernel"),
             library=("torch._int_mm" if kind == "i8dot" else "torch.matmul")
             + " chain (a yardstick; the port never calls it)",
-            **bound(2 * macs, lhs.numel() * lhs.element_size()
-                    + x0.numel() * x0.element_size() + 64 * W * 4, rate))
+            **dot_bound(kind, W, n_mm))
         r["tmac_s"] = None if r["device_ms"] is None else \
             macs / r["device_ms"] / 1e9
         log(f"K11 {kind} {'bit-exact' if kind == 'i8dot' else 'within'} "
@@ -1765,6 +1861,21 @@ def phase_experiments(dev, results, loops: dict, exp_report: dict) -> dict:
             f"{r['ms']:.4f} ms a call ({fmt_ms(r['device_ms'])} on the "
             f"device), plain {plain_ms:.4f} ms, library "
             f"{fmt_ms(r['library_ms'])}, bound {r['bound_ms']:.4g} ms")
+    # the dots again at every width of DOT_CHECK_W
+    t_dot = time.time()
+    checked, rng_w = {}, np.random.default_rng(20261021)
+    for W_c in DOT_CHECK_W:
+        for kind in vr.DOT_KINDS:
+            _, (lhs, x0) = vr.make_dot(kind, W_c, n_mm,
+                                       *dot_sides(rng_w, kind, W_c),
+                                       device=dev)
+            err = dot_error(kind, vr.dot_chain(kind, lhs, x0, n_mm),
+                            vr.dot_chain_plain(kind, lhs, x0, n_mm))
+            checked.setdefault(kind, []).append([W_c, err])
+    results["k11_dot_checks"] = checked
+    log(f"K11 dots against their plain versions at W = {list(DOT_CHECK_W)} "
+        f"({time.time() - t_dot:.1f} s): i8dot bit-exact, bf16dot within "
+        f"{BF16_TOL} of max |acc|: {checked}")
 
     # K9: variants A, B, C at n = 2^20 (values below p, edge values first),
     # B's chains at 2^18
@@ -2984,6 +3095,12 @@ def main():
             f"{r['stack_bytes']}-byte stack frame, {r['LDL/STL']} LDL/STL, "
             f"{r['CALL']} CALL, {r['loops']} loops")
     require_exp_mul(exp_report)
+    dots = dot_report(all_ptxas, lib_path)
+    for name, r in dots.items():
+        log(f"  K11 {name}: {r['registers']} registers, {r['stack_bytes']}"
+            f"-byte stack frame, {r['LDL/STL']} LDL/STL; {r['steps_a_trip']}"
+            f" steps a trip of its step loop, a step {r['a_step']}")
+    require_dots(dots)
     t_exp = time.time()
     launches_exp = phase_experiments(dev, results, loops, exp_report)
     exp_s = time.time() - t_exp
@@ -3140,7 +3257,8 @@ def main():
                    "k3_k6_sass": {k: v for k, v in sass.items()
                                   if k not in scan_sass},
                    "k6_fit": results["K6_fit"],
-                   "k9_k10_kernels": exp_report,
+                   "k9_k10_kernels": exp_report, "k11_dot_kernels": dots,
+                   "k11_dot_checks": results["k11_dot_checks"],
                    "k3_kinds": results["K3_kinds"],
                    "shapes": {k: results[k + "_shapes"] for k in meta
                               if k + "_shapes" in results},

@@ -1,10 +1,10 @@
 """Time the port's K1 and K2 (the field kernels), K3 (point formulas),
 K4 (bucket scan), K5 (weighted suffix), K6 (ladder and tree), K7 (the
 staged add), K8 (the batched Jacobian add and dbl), K9 and K10 (the
-16-bit-limb Montgomery products) in other checkouts and this one on one
-card, in turns.
+16-bit-limb Montgomery products) and K11 (the raw-rate probes) in other
+checkouts and this one on one card, in turns.
 
-    python3 scripts/torch_kernel_ab.py OTHER_DIR [OTHER_DIR ...] [--parts k1_k6,k7_k8,k9_k10] [--out chiprun_out/ab.json]
+    python3 scripts/torch_kernel_ab.py OTHER_DIR [OTHER_DIR ...] [--parts k1_k6,k7_k8,k9_k10,k11] [--out chiprun_out/ab.json]
 
 Each OTHER_DIR holds another checkout's `zksnap_tpu_torch` (for example
 the parent commit: `git archive <commit> zksnap_tpu_torch | tar -x -C
@@ -16,7 +16,8 @@ the same seeded inputs, calls the checkout's own `mont_mul`,
 `mont_addsub`, `point`, `bucket_scan`, `weighted_suffix` and
 `ladder_tree` (part k1_k6) and `point_add_batch`, `point_dbl_batch`,
 `point_add_staged` and the SRS's double-and-add (part k7_k8),
-`mul_limb_major` and `mont_mul_mxu` (part k9_k10), and reads CUDA events
+`mul_limb_major` and `mont_mul_mxu` (part k9_k10), `dot_chain` and
+`op_chain` (part k11), and reads CUDA events
 over repeated calls and the profiler's device time of each kernel.
 `--parts` picks the parts (default k1_k6 and k7_k8).  The shapes of
 k1_k6:
@@ -58,6 +59,16 @@ values first): K9's variants B and C at n = 2^20 and B's chains x4, x18
 and x40 at 2^18 (the experiment's own shapes); K10's six variants at
 B = 2^18 (the experiment's) and 2^20.
 
+The shapes of k11 (K11, the raw-rate probes): i8dot and bf16dot, 64
+products, at W = 2^14 (the JAX script's `main`), 2^18 (its docstring's)
+and 2^14 - 8, in every design the checkout has (`exp_vpu_rates.
+DOT_DESIGNS`; a checkout without it has one), each held to its plain
+version in the turn; the five chains on 16 x 2^14 lanes at 512 and 16,384
+steps.  Each turn reads the dot kernels' ptxas lines and step loops
+(chip_smoke.py's `dot_report`) and the chains' loops (`chain_loops`);
+`k11_summary` gives each tree's device and call ms range beside the bound
+of each shape.
+
 Each turn also reads the kernels' ptxas lines and SASS mix
 (chip_smoke.py's `ptxas_entries` and `kernel_sass`; cuobjdump is
 required; part k7_k8 adds K3's Jacobian kinds and K7's and K8's own
@@ -70,7 +81,8 @@ given for each kernel: ms a call and launches a call.  Prints one JSON
 line with every turn and the card's name and power limit; the whole
 record goes to --out, with part k9_k10's summary (`k9_k10_summary`:
 each tree's device ms range and issue bound beside the function's bound
-at each shape).
+at each shape) and part k11's (`k11_summary`).  K11's i8dot and chain
+outputs must be the same bytes in every turn.
 """
 
 from __future__ import annotations
@@ -100,8 +112,13 @@ JAC_NAMES = ("jac_add_kernel", "jac_dbl_kernel", "staged_add_a_kernel",
 # copies
 KERNEL_NAMES = SCAN_NAMES + JAC_NAMES + (
     "point_kernel", "ladder_tree_kernel", "mont_mul_kernel",
-    "mont_addsub_kernel", "direct_copy") + ("mul16_kernel", "mxu_mul_kernel")
-PARTS = ("k1_k6", "k7_k8", "k9_k10")
+    "mont_addsub_kernel", "direct_copy") + ("mul16_kernel", "mxu_mul_kernel",
+                                            "dot_chain", "op_chain_kernel")
+PARTS = ("k1_k6", "k7_k8", "k9_k10", "k11")
+# part k11's dot widths: the JAX main's 2^14, the script docstring's 2^18
+# and a ragged 2^14 - 8; its chains' lengths on 16 x 2^14 lanes
+K11_DOT_W = (("2^14", 1 << 14), ("2^18", 1 << 18), ("2^14-8", (1 << 14) - 8))
+K11_CHAINS = (512, 16384)
 
 
 def _chip_smoke():
@@ -147,6 +164,10 @@ def turn(tree: str, k5_out: str, parts) -> dict:
     if "k9_k10" in parts:
         out["k9_k10_kernels"] = cs.exp_mul_report(all_ptxas, lib)
         out.update(k9_k10(cs, dev))
+    if "k11" in parts:
+        out["k11_kernels"] = cs.dot_report(all_ptxas, lib)
+        out["k11_chain_loops"] = cs.chain_loops(lib)
+        out.update(k11(cs, dev))
     return out
 
 
@@ -397,6 +418,100 @@ def k9_k10(cs, dev) -> dict:
     return out
 
 
+def k11(cs, dev) -> dict:
+    """Part k11: K11's dots (64 products) at K11_DOT_W, in each design that
+    the tree has (`exp_vpu_rates.DOT_DESIGNS`; the default one under the
+    plain key), each held to its plain version (i8dot bit-exact, bf16dot
+    within chip_smoke.BF16_TOL of max |acc|); its five chains on 16 x 2^14
+    lanes at K11_CHAINS steps, bit-exact at 512.  The hash covers the
+    default design's i8dot outputs and the chains', which every checkout
+    has."""
+    import numpy as np
+    import torch
+
+    from zksnap_tpu_torch.experiments import exp_vpu_rates as vr
+
+    rng = np.random.default_rng(20261020)
+    default = getattr(vr, "DOT_DESIGN", None)
+    designs = getattr(vr, "DOT_DESIGNS", (None,))
+    calls, errs, exact = {}, {}, []
+    for tag, W in K11_DOT_W:
+        for kind in vr.DOT_KINDS:
+            _, (lhs, x0) = vr.make_dot(kind, W, vr.N_MM,
+                                       *cs.dot_sides(rng, kind, W), device=dev)
+            want = vr.dot_chain_plain(kind, lhs, x0, vr.N_MM)
+            for d in designs:
+                kw = {} if d is None else {"design": d}
+                key = f"k11_{kind}" + ("" if d == default else f"_{d}") \
+                    + f"_{tag}"
+
+                def fn(kind=kind, lhs=lhs, x0=x0, kw=kw):
+                    return vr.dot_chain(kind, lhs, x0, vr.N_MM, **kw)
+                got = fn()
+                if kind == "i8dot":
+                    errs[key] = cs.max_abs_err([got], [want])
+                    cs.require(errs[key] == 0, ("K11", key, errs[key]))
+                    if d == default:  # the keys every checkout has
+                        exact.append(key)
+                else:
+                    errs[key] = float((got - want).abs().max()
+                                      / want.abs().max())
+                    cs.require(errs[key] <= cs.BF16_TOL, ("K11", key,
+                                                         errs[key]))
+                calls[key] = (fn, 200 if W < 1 << 16 else 50)
+    W = 1 << cs.EXP_W_LOG
+    a, b = cs.u32_rows(rng, W, dev), cs.u32_rows(rng, W, dev)
+    for kind in vr.CHAIN_KINDS:
+        cs.require(torch.equal(vr.op_chain(kind, a, b, K11_CHAINS[0]),
+                               vr.op_chain_plain(kind, a, b, K11_CHAINS[0])),
+                   ("K11 chain", kind))
+        for chain in K11_CHAINS:
+            key = f"k11_{kind}_c{chain}"
+            calls[key] = (lambda kind=kind, chain=chain: vr.op_chain(
+                kind, a, b, chain), 200 if chain <= 512 else 20)
+            exact.append(key)
+    out = {"k11_sha256": outputs_sha256(calls, exact), "k11_errors": errs}
+    out.update(timed_calls(cs, calls))
+    return out
+
+
+def k11_summary(record: dict) -> dict:
+    """{shape: {"bound_ms", "bound_by", tree: {"device_ms": [lo, hi],
+    "ms": [lo, hi]}}} over a k11 record's turns: each tree's device and
+    call ms (the range over its turns) beside the function's bound
+    (chip_smoke.dot_bound; a chain's from its loop, chain_step_rate, the
+    loop in this tree's first turn)."""
+    cs = _chip_smoke()
+    from zksnap_tpu_torch.experiments import exp_vpu_rates as vr
+
+    widths = dict(K11_DOT_W)
+    loops = next(t["k11_chain_loops"] for t in record["turns"]
+                 if os.path.samefile(t["tree"], ROOT))
+    lanes = 16 * (1 << cs.EXP_W_LOG)
+    out = {}
+    for t in record["turns"]:
+        tree = os.path.basename(os.path.normpath(t["tree"]))
+        for key in t:
+            if not (key.startswith("k11_") and key.endswith("_device_ms")):
+                continue
+            shape = key[len("k11_"):-len("_device_ms")]
+            kind, size = shape.split("_")[0], shape.split("_")[-1]
+            if kind in vr.DOT_KINDS:
+                b = cs.dot_bound(kind, widths[size], vr.N_MM)
+            else:
+                chain = int(size[1:])
+                rate = cs.chain_step_rate(loops[kind], vr.CHAIN_UNROLL)
+                b = cs.bound(lanes * chain, lanes * 12, rate)
+            r = out.setdefault(shape, b)
+            dev_ms = sum(v[0] for v in t[key].values())
+            ms = t[f"k11_{shape}_ms"]
+            old = r.get(tree, {"device_ms": [dev_ms] * 2, "ms": [ms] * 2})
+            r[tree] = {"device_ms": [min(old["device_ms"][0], dev_ms),
+                                     max(old["device_ms"][1], dev_ms)],
+                       "ms": [min(old["ms"][0], ms), max(old["ms"][1], ms)]}
+    return out
+
+
 def k9_k10_summary(record: dict) -> dict:
     """{shape: {"bound_ms", "bound_by", tree: {"device_ms": [lo, hi],
     "issue_bound_ms", "issue_bound_by"}}} over a k9_k10 record's turns:
@@ -490,7 +605,8 @@ def main(argv=None):
                           if k not in ("ptxas", "sass")}), flush=True)
     same = (("k1_k2", "k3", "k4", "k6") if "k1_k6" in parts else ()) + (
         ("k7_k8", "srs_chunk") if "k7_k8" in parts else ()) + (
-        ("k9_k10",) if "k9_k10" in parts else ())
+        ("k9_k10",) if "k9_k10" in parts else ()) + (
+        ("k11",) if "k11" in parts else ())
     checks = {f"{k}_same_bytes": len({t[f"{k}_sha256"] for t in turns}) == 1
               for k in same}
     if "k1_k6" in parts:
@@ -505,6 +621,8 @@ def main(argv=None):
     line = {"turns": turns, **checks, "nvidia_smi": smi}
     if "k9_k10" in parts:
         line["k9_k10_summary"] = k9_k10_summary(line)
+    if "k11" in parts:
+        line["k11_summary"] = k11_summary(line)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(line, f, indent=1)

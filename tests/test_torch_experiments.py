@@ -22,6 +22,7 @@ import importlib.util
 import json
 import os
 import random
+import re
 import zlib
 
 import jax
@@ -152,6 +153,140 @@ def test_bf16dot_matches_jax(monkeypatch):
     assert np.abs(got - want).max() <= chip_smoke.BF16_TOL * scale
 
 
+def _dot_b_matrix(kind: str, lhs: np.ndarray) -> np.ndarray:
+    """B [32 slots, 64 outputs] as the kernel's products read it: the
+    shared-memory image (dot_b_image) through the descriptor (core
+    (n // 8, k // 8 of a k step) at SBO 256 and LBO 128 bytes, row n % 8 at
+    16 bytes); int8 values or bf16 bit patterns."""
+    img = tvr.dot_b_image(kind, lhs)
+    esz = 1 if kind == "i8dot" else 2
+    B = np.zeros((32, 64), np.int64)
+    for k in range(32):
+        ks, kk = divmod(k, 16) if esz == 2 else (0, k)
+        for n in range(64):
+            at = (2048 * ks + 256 * (n // 8) + 128 * (kk * esz // 16)
+                  + 16 * (n % 8) + (kk * esz) % 16)
+            B[k, n] = (int(img[at].view(np.int8)) if esz == 1
+                       else int(img[at]) | int(img[at + 1]) << 8)
+    return B
+
+
+def _bf16_value(bits) -> np.ndarray:
+    return (np.asarray(bits, np.uint32) << 16).view(np.float32)
+
+
+def _dot_model(kind: str, lhs: np.ndarray, x0: np.ndarray,
+               n_mm: int) -> np.ndarray:
+    """A lane-by-lane model of csrc/exp_rates.cu's dot_chain_kernel: each
+    block's 64 columns as the M rows (warp w rows 16w.., lane (g, t) rows
+    g and g + 8), A's registers loaded from x0 by slot (DOT_PERM for
+    i8dot) and each step assembled into A, D = A . B, D's registers read
+    at their n tiles and summed, and the next A repacked from them by
+    dot_a_source (int8 wrap; bf16 of y * 1e-3); every step's D added to
+    the sum.  x0: int8, or bf16 bits."""
+    i8 = kind == "i8dot"
+    W = x0.shape[1]
+    B = _dot_b_matrix(kind, lhs)
+    Bv = B if i8 else _bf16_value(B)
+    n_ks, per_reg = (1, 4) if i8 else (2, 2)
+    perm = tvr.DOT_PERM if i8 else np.arange(32)
+    acc = np.zeros((64, W), np.int64 if i8 else np.float32)
+    lanes = [(w, lane >> 2, lane & 3) for w in range(4) for lane in range(32)]
+    for c0 in range(0, W, 64):
+        cols = {(w, g): (c0 + 16 * w + g, c0 + 16 * w + g + 8)
+                for w, g, _ in lanes}
+        regs = {}  # (w, g, t, ks, r, i) -> an A value (int8, or bf16 bits)
+        for w, g, t in lanes:
+            for ks in range(n_ks):
+                for r in range(4):
+                    m = cols[w, g][r & 1]
+                    for i in range(per_reg):
+                        slot = tvr.dot_a_slot(kind, ks, r, t, i)
+                        regs[w, g, t, ks, r, i] = (
+                            int(x0[perm[slot], m]) if m < W else 0)
+        total = np.zeros((64, 64), acc.dtype)
+        for _ in range(n_mm):
+            A = np.full((64, 32), -1 << 20, np.int64)
+            for (w, g, t, ks, r, i), v in regs.items():
+                A[16 * w + g + 8 * (r & 1),
+                  tvr.dot_a_slot(kind, ks, r, t, i)] = v
+            assert (A > -1 << 20).all()  # every slot of every row once
+            D = (A @ Bv if i8 else
+                 _bf16_value(A).astype(np.float32) @ Bv.astype(np.float32))
+            total = total + D
+            for w, g, t in lanes:
+                for ks in range(n_ks):
+                    for r in range(4):
+                        for i in range(per_reg):
+                            nt, j = tvr.dot_a_source(kind, ks, r, i)
+                            y = D[16 * w + g + 8 * (j >> 1),
+                                  8 * nt + 2 * t + (j & 1)]
+                            regs[w, g, t, ks, r, i] = (
+                                ((int(y) + 128) & 255) - 128 if i8 else
+                                int(tvr._bf16_bits(np.float32(y)
+                                                   * np.float32(1e-3))[0]))
+        valid = min(64, W - c0)
+        acc[:, c0:c0 + valid] = total.T[:, :valid]
+    return acc
+
+
+def test_dot_perm_is_a_bijection_on_each_half():
+    """DOT_PERM maps slots 0..15 onto rows 0..15 and 16..31 onto 16..31,
+    and slot 4t + i of a quad's lane t is D's position {2t, 2t+1, 8+2t,
+    9+2t}[i] of the same lane: what the i8dot repack reads."""
+    perm = list(tvr.DOT_PERM)
+    assert sorted(perm[:16]) == list(range(16))
+    assert sorted(perm[16:]) == list(range(16, 32))
+    for t in range(4):
+        for r in range(4):
+            for i in range(4):
+                nt, j = tvr.dot_a_source("i8dot", 0, r, i)
+                slot = tvr.dot_a_slot("i8dot", 0, r, t, i)
+                assert perm[slot] == 8 * nt + 2 * t + (j & 1)
+                assert (j >> 1) == (r & 1)  # the same row of the tile
+
+
+@pytest.mark.parametrize("W", [64, 72])
+@pytest.mark.parametrize("kind", tvr.DOT_KINDS)
+def test_dot_fragment_model_matches_the_plain_version(kind, W):
+    """The lane-by-lane model of the transposed chain (A repacked from D in
+    registers, under DOT_PERM for i8dot and as D lies for bf16dot) is
+    dot_chain_plain's i8dot bit-exact and its bf16dot within
+    chip_smoke.BF16_TOL of max |acc|, at W = 64 and at 72, whose second
+    tile has 56 idle rows; n_mm = 4."""
+    rng = np.random.default_rng(1200 + W)
+    lhs, x0 = chip_smoke.dot_sides(rng, kind, W)
+    if kind == "i8dot":
+        got = _dot_model(kind, lhs, x0, 4)
+        want = tvr.dot_chain_plain(kind, torch.from_numpy(lhs),
+                                   torch.from_numpy(x0), 4)
+        assert np.array_equal(got.astype(np.int32), want.numpy())
+    else:
+        bits = tvr._bf16_bits(x0)
+        got = _dot_model(kind, lhs, bits, 4)
+        xt = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+        want = tvr.dot_chain_plain(kind, torch.from_numpy(lhs), xt,
+                                   4).numpy()
+        scale = np.abs(want).max()
+        assert scale > 0
+        assert np.abs(got - want).max() <= chip_smoke.BF16_TOL * scale
+
+
+@pytest.mark.parametrize("kind", tvr.DOT_KINDS)
+def test_dot_b_image_unpacks_to_l(kind):
+    """The kernel's B image (dot_b_image), read through the
+    descriptor's core-matrix addressing, is L^T with i8dot's K rows at
+    L's columns DOT_PERM (bf16dot's in order, as bf16 of L)."""
+    lhs, _ = chip_smoke.dot_sides(np.random.default_rng(7), kind, 8)
+    B = _dot_b_matrix(kind, lhs)
+    if kind == "i8dot":
+        assert np.array_equal(B, lhs[:, tvr.DOT_PERM].T.astype(np.int64))
+    else:
+        assert np.array_equal(B, tvr._bf16_bits(lhs).T.astype(np.int64))
+    assert tvr.dot_b_image(kind, lhs).size == (2048 if kind == "i8dot"
+                                               else 4096)
+
+
 _U32ADD_SASS = """\
 		Function : _Z15op_chain_kernelILi2EEvPKjS1_Pjxi
         /*0170*/                   ISETP.GE.AND P0, PT, R8, 0x10, PT ;
@@ -231,6 +366,56 @@ def _listing(name: str, ops) -> str:
             op = f"BRA 0x{0x100 + 16 * op[1]:x}"
         lines.append(f"        /*{0x100 + 16 * i:04x}*/{' ' * 19}{op} ;")
     return "\n".join(lines) + "\n"
+
+
+def _dot_listing(kind: int, step) -> str:
+    """A dot kernel's listing: set-up, a step outside the loop, then a
+    loop of two steps."""
+    name = f"_Z16dot_chain_kernelILi{kind}EEvPKN3DotIXT_EE5lhs_tEii"
+    return _listing(name, ["LDG.E.U8 R4, [R2.64]"] + step + step + step
+                    + [("BRA", 1 + len(step)), "STG.E [R6.64], R8", "EXIT"])
+
+
+def test_dot_report_reads_a_step(monkeypatch):
+    """chip_smoke.dot_report: a dot kernel's step loop read from its SASS,
+    a step's tensor-core instructions and shared-memory accesses counted
+    from the trip's multiply-adds (a warp's 16 columns x 64 x 32, half
+    again for the sum's product, a step); require_dots holds each loop to
+    no LDS/STS and each kernel to a 0-byte frame."""
+    import types
+
+    i8 = ["WARPGROUP.ARRIVE", "IGMMA.64x32x32.S8.S8 R24, R4, gdesc[UR4]",
+          "IGMMA.64x64x32.S8.S8 R40, R4, gdesc[UR8], R40",
+          "WARPGROUP.DEPBAR.LE gsb0, 0x1", "PRMT R4, R24, 0x40, R25"]
+    bf = ["WARPGROUP.ARRIVE", "HGMMA.64x32x16.F32.BF16 R24, R4, gdesc[UR4]",
+          "HGMMA.64x32x16.F32.BF16 R24, R8, gdesc[UR6], R24",
+          "HGMMA.64x64x16.F32.BF16 R40, R4, gdesc[UR8], R40",
+          "HGMMA.64x64x16.F32.BF16 R40, R8, gdesc[UR10], R40",
+          "FMUL R4, R24, 0.001", "F2FP.BF16.F32.PACK_AB R4, R25, R24"]
+    sass = _dot_listing(0, i8) + _dot_listing(1, bf)
+    monkeypatch.setattr(chip_smoke.os.path, "exists", lambda path: True)
+    monkeypatch.setattr(chip_smoke.subprocess, "run", lambda *a, **k:
+                        types.SimpleNamespace(stdout=sass))
+    ptxas = {f"_Z16dot_chain_kernelILi{k}EEvPKN3DotIXT_EE5lhs_tEii":
+             {"registers": 90, "stack_bytes": 0} for k in (0, 1)}
+    rep = chip_smoke.dot_report(ptxas, "libzk.so")
+    got = {re.search(r"ILi(\d)E", k).group(1): (
+        r["steps_a_trip"], r["a_step"]["tensor"], r["a_step"]["LDS/STS"],
+        r["a_step"]["all"]) for k, r in rep.items()}
+    assert got == {"0": (2, 2, 0, 5), "1": (2, 4, 0, 7)}
+    assert all(r["LDL/STL"] == 0 and r["registers"] == 90
+               for r in rep.values())
+    chip_smoke.require_dots(rep)
+    with_lds = _dot_listing(0, i8 + ["LDS R4, [R9]"]) + _dot_listing(1, bf)
+    monkeypatch.setattr(chip_smoke.subprocess, "run", lambda *a, **k:
+                        types.SimpleNamespace(stdout=with_lds))
+    with pytest.raises(RuntimeError):
+        chip_smoke.require_dots(chip_smoke.dot_report(ptxas, "libzk.so"))
+    monkeypatch.setattr(chip_smoke.subprocess, "run", lambda *a, **k:
+                        types.SimpleNamespace(stdout=sass))
+    ptxas[next(iter(ptxas))]["stack_bytes"] = 8
+    with pytest.raises(RuntimeError):
+        chip_smoke.require_dots(chip_smoke.dot_report(ptxas, "libzk.so"))
 
 
 def test_exp_mul_report_weights_loops_and_pipes(monkeypatch):

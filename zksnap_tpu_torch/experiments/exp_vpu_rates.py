@@ -15,7 +15,9 @@ kernels, and chains of small products on the tensor cores:
 
 `op_chain` and `dot_chain` launch csrc/exp_rates.cu on CUDA tensors and run
 their plain versions on CPU tensors; `op_chain.launches` and
-`dot_chain.launches` count the launches.
+`dot_chain.launches` count the launches.  The dot kernels' fragment and
+shared-memory layouts are written out below (DOT_PERM, dot_a_source,
+dot_b_image) for the CPU tests' lane-by-lane model.
 
     python -m zksnap_tpu_torch.experiments.exp_vpu_rates [w_log=14] [chain=512]
 """
@@ -35,6 +37,69 @@ DOT_KINDS = ("i8dot", "bf16dot")
 N_MM = 64
 # steps a trip of the chain kernel's main loop (csrc/exp_rates.cu)
 CHAIN_UNROLL = 16
+DOT_COLUMNS_A_WARP = 16  # a warp's M rows: 16 columns of W
+# a step's tensor-core work in products of the function: y's outputs 0..31
+# fresh for the chain, all 64 into the sum
+DOT_PRODUCTS_A_STEP = 1.5
+
+
+def _perm(p: int) -> int:
+    i = p & 3
+    return (p & 16) + 2 * ((p >> 2) & 3) + (i & 1) + 8 * (i >> 1)
+
+
+# The dot kernels compute y^T = x^T . L^T: a block's 64 columns of W are the
+# product's M rows (warp w has rows 16w..16w+15; g = lane // 4, t = lane % 4
+# as in the fragments of csrc/exp_rates.cu), the contraction's 32 slots
+# its K, y's 64 rows its N.  i8dot's slot p holds row DOT_PERM[p] of x (and
+# so of y, and B's K row p is L's column DOT_PERM[p]); bf16dot's slot p
+# holds row p.
+DOT_PERM = np.array([_perm(p) for p in range(32)])
+
+
+def dot_a_source(kind: str, ks: int, r: int, i: int) -> tuple[int, int]:
+    """(n tile, register) of the D fragment that feeds byte (i8dot) or half
+    (bf16dot) i of A register r of k step ks in the next step."""
+    if kind == "i8dot":
+        return 2 * (r >> 1) + (i >> 1), 2 * (r & 1) + (i & 1)
+    return 2 * ks + (r >> 1), 2 * (r & 1) + i
+
+
+def dot_a_slot(kind: str, ks: int, r: int, t: int, i: int) -> int:
+    """The contraction slot of byte or half i of A register r of k step ks
+    in lane t of a quad (its row is g + 8 (r & 1))."""
+    if kind == "i8dot":
+        return 16 * (r >> 1) + 4 * t + i
+    return 16 * ks + 8 * (r >> 1) + 2 * t + i
+
+
+def _bf16_bits(x: np.ndarray) -> np.ndarray:
+    """float32 -> bfloat16 bit patterns (uint16), rounded to nearest even."""
+    t = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+
+
+def dot_b_image(kind: str, lhs: np.ndarray) -> np.ndarray:
+    """The dot kernel's B (L^T, i8dot's K rows permuted by DOT_PERM) as
+    a block writes it to shared memory, uint8: K-major core matrices of 8
+    N rows x 16 bytes of K, core (cb, kb) at (2 cb + kb) * 128, N row n of
+    a core at 16 n; bf16dot's two k steps of 16 are 2048 bytes apart.  The
+    descriptor's leading offset is K-adjacent cores' 128 bytes, its stride
+    N-adjacent cores' 256."""
+    lhs = np.asarray(lhs)
+    if kind == "i8dot":
+        rows = lhs[:, DOT_PERM].view(np.uint8)  # [n, K bytes]
+    else:
+        rows = _bf16_bits(lhs).view(np.uint8).reshape(64, 64)
+    k_steps = rows.shape[1] // 32
+    img = np.zeros(2048 * k_steps, np.uint8)
+    for ks in range(k_steps):
+        for n in range(64):
+            for kb in range(2):
+                at = 2048 * ks + (2 * (n // 8) + kb) * 128 + 16 * (n % 8)
+                lo = 16 * (2 * ks + kb)
+                img[at:at + 16] = rows[n, lo:lo + 16]
+    return img
 
 
 def _mul32(x, y):
