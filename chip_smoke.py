@@ -40,7 +40,10 @@ Phases:
      once each at n = 2^20 with the counts read, then against their plain
      versions at n = 2^20 and n = 32768, edge cases included, the staged
      add against the fused one, K8's add also on a batch with P == Q on
-     every lane and on one with the edge cases inside every warp;
+     every lane and on one with the edge cases inside every warp; K3's
+     RCB kinds at secp256k1's modulus (b3 = 21) through secp_proj_ops,
+     bit-exact at n = 32768 and at ragged n with the edge rows, 64 rows
+     against the python-int oracle, timed at n = 32768 as BN254's padd;
   2b. the experiments path (K9-K11): the `main` of each module of
      zksnap_tpu_torch/experiments at the scripts' default sizes
      (exp_vpu_rates: 16 x 2^14 lanes, chain 512, 64 products;
@@ -52,7 +55,9 @@ Phases:
      profiler's device times, K11's rates read again over a chain of
      RATE_CHAIN steps (CUDA events) and the dots' library yardstick; the
      K11 dots again at every width of DOT_CHECK_W (ragged ones among
-     them);
+     them), at DOT_TIMED_W timed with their plain versions and the
+     library's chain; K10's six variants against their plain versions at
+     B = 2^20, timed;
   3. K=7 parity with the frozen JAX vectors: the port's keygen gives the
      frozen vk digest, the port's verifier accepts the frozen proof, and
      a second keygen with ZKSNAP_TPU_FUSED_REDUCE=1 (every commit through
@@ -97,6 +102,18 @@ Phases:
      2 or 4 cards and scaling_efficiency of the 2^21 commit and the 2^23
      NTT over 1, 2, 4 cards; with one card it prints that they did not
      run;
+  6c. poly_device's five functions that the prover does not call
+     (coset_extended_evals, coset_interpolate, pow_series_traced,
+     batch_eval, rlc): at k=7 on the card against the CPU, at k=18 with
+     the extended domain at 2^21 rows bit-exact against their plain path
+     on the card (K1's and K2's plain versions), the round trip against
+     the zero-padded coefficients, coset_interpolate on a virtual mesh of
+     four against one card; then the voter with the Paillier encryption
+     check at k=18, PLUME off, through scripts/prove_voter_torch.py's
+     main (its stats, instances and vk shape against the frozen JAX
+     ones; SRS, keygen, a cold and a warm proof with their peaks and
+     launches, verification), a tampered proof rejected, K1-K4 launched
+     over its warm prove, and one more warm proof under torch.profiler;
   7. a ceremony-format SRS at k=15 written, read back (curve, pairing
      and Lagrange-sum checks) and compared; a corrupted file refused;
   8. the protocol of scripts/protocol_demo.py at its defaults: two rounds
@@ -744,20 +761,24 @@ def check_bucket_scan(results, tag: str, Qa, ids, M: int):
 RAGGED_N = (1, 31, 8191, 8192, 32769, 32768)
 
 
-def check_point_ragged(dev, rng, results):
-    """K3's six kinds bit-exact against their plain versions at each n of
-    RAGGED_N: rows drawn from 8192 seeded points (projective for padd,
-    pmadd, pdbl, Jacobian for add, madd, dbl), the edge rows (identities,
-    P == Q, P == -P) first and last."""
+def check_point_ragged(dev, rng, results, ops=None):
+    """K3's kinds bit-exact against their plain versions at each n of
+    RAGGED_N: rows drawn from 8192 seeded points, the edge rows
+    (identities, P == Q, P == -P) first and last.  With no `ops`, BN254's
+    six kinds (projective for padd, pmadd, pdbl, Jacobian for add, madd,
+    dbl); with RCB `ops`, its curve's padd, pmadd and pdbl at its p and
+    b3.  Returns the projective inputs (P, Q_general, Q_affine)."""
     from zksnap_tpu_torch.curves import fused
-    from zksnap_tpu_torch.curves.native import BN254_G1
-    from zksnap_tpu_torch.fields import bn254_fq
+    from zksnap_tpu_torch.curves.proj import bn254_proj_ops
 
-    Fq, b3 = bn254_fq(), 3 * BN254_G1.b
-    P, Qg, Qa = point_inputs(BN254_G1, Fq, 8192, rng, dev, False)
-    PJ, QgJ, QaJ = point_inputs(BN254_G1, Fq, 8192, rng, dev, True)
-    cases = (("padd", P + Qg, b3), ("pmadd", P + Qa, b3), ("pdbl", P, b3),
-             ("add", PJ + QgJ, 0), ("madd", PJ + QaJ, 0), ("dbl", PJ, 0))
+    proj = ops or bn254_proj_ops()
+    F, b3 = proj.F, proj.b3
+    P, Qg, Qa = point_inputs(proj.params, F, 8192, rng, dev, False)
+    cases = [("padd", P + Qg, b3), ("pmadd", P + Qa, b3), ("pdbl", P, b3)]
+    if ops is None:
+        PJ, QgJ, QaJ = point_inputs(proj.params, F, 8192, rng, dev, True)
+        cases += [("add", PJ + QgJ, 0), ("madd", PJ + QaJ, 0),
+                  ("dbl", PJ, 0)]
     gen = torch.Generator().manual_seed(rng.randrange(1 << 31))
     for n in RAGGED_N:
         idx = torch.randint(0, 8192, (n,), generator=gen)
@@ -767,11 +788,90 @@ def check_point_ragged(dev, rng, results):
         idx = idx.to(dev)
         for kind, ins, kb3 in cases:
             args = [a[idx] for a in ins]
-            err = max_abs_err(fused.point(kind, args, Fq.p, kb3),
-                              fused.point_plain(kind, args, Fq.p, kb3))
-            require(err == 0, ("K3 ragged", kind, n, err))
-    shape_result(results, "K3", "ragged", n=list(RAGGED_N), max_abs_err=0)
-    log(f"K3's six kinds bit-exact at ragged n = {list(RAGGED_N)}")
+            err = max_abs_err(fused.point(kind, args, F.p, kb3),
+                              fused.point_plain(kind, args, F.p, kb3))
+            require(err == 0, ("K3 ragged", proj.params.name, kind, n, err))
+    tag = "ragged" if ops is None else f"{proj.params.name}_ragged"
+    shape_result(results, "K3", tag, n=list(RAGGED_N), max_abs_err=0)
+    log(f"K3's {len(cases)} kinds over {proj.params.name} (b3 = {b3}) "
+        f"bit-exact at ragged n = {list(RAGGED_N)}")
+    return P, Qg, Qa
+
+
+# (formula work, coordinate rows moved) of K3's projective kinds
+POINT_WORK = {"padd": (PADD, 9), "pmadd": (PMADD, 9), "pdbl": (PDBL, 6)}
+
+
+def time_point(results, tag: str, kind: str, ins, p: int, b3: int,
+               launch=None) -> dict:
+    """K3's projective `kind` on the n rows of `ins` (checked already),
+    timed through `launch` (default the wrapper at p, b3): call, device
+    and plain times, against its bound."""
+    from zksnap_tpu_torch.curves import fused
+
+    launch = launch or (lambda: fused.point(kind, ins, p, b3))
+    n = ins[0].shape[0]
+    work, rows = POINT_WORK[kind]
+    r = shape_result(
+        results, "K3", tag, n=n, max_abs_err=0, ms=cuda_ms(launch, 50),
+        plain_ms=cuda_ms(lambda: fused.point_plain(kind, ins, p, b3), 2),
+        device_ms=kernel_device_ms(launch, "point_kernel"),
+        **formula_bound([(n, work)], n * rows * ROW))
+    log(f"K3 {kind:5s} bit-exact ({tag}, n={n}): kernel {r['ms']:.4f} ms a "
+        f"call ({fmt_ms(r['device_ms'])} on the device), plain "
+        f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4g} ms")
+    return r
+
+
+SECP_N = 32768  # the k=21 path's padd width
+SECP_SEED = 20261019  # the secp check's own inputs: the other phases' stay
+
+
+def check_secp_rcb(dev, results):
+    """K3's RCB kinds at secp256k1's modulus (p = 2^256 - 2^32 - 977, no
+    headroom under 2^256; b3 = 21) through `secp_proj_ops`: bit-exact
+    against their plain versions at each n of RAGGED_N (SECP_N among
+    them) with the edge rows first and last; 64 rows through the ops'
+    group law against the python-int oracle as affine points; each kind
+    timed at SECP_N through the group law (phase2_k21 times BN254's padd
+    at that n)."""
+    from zksnap_tpu_torch.curves import fused
+    from zksnap_tpu_torch.curves.jacobian import JacPoint
+    from zksnap_tpu_torch.curves.proj import secp_proj_ops
+
+    ops = secp_proj_ops()
+    require(ops.b3 == 21, ("secp256k1's b3", ops.b3))
+    rng = random.Random(SECP_SEED)
+    before = fused.point.launches
+    P, Qg, Qa = check_point_ragged(dev, rng, results, ops)
+    group_law = {"padd": ops.add, "pmadd": ops.madd, "pdbl": ops.double}
+
+    def entry(kind, args):
+        """The kind through the ops' group law (a launch of K3)."""
+        r = group_law[kind](*(JacPoint(*args[i:i + 3])
+                              for i in range(0, len(args), 3)))
+        return r.x, r.y, r.z
+
+    cases = {"padd": P + Qg, "pmadd": P + Qa, "pdbl": P}
+    m = 64
+    aff_p = ops.to_affine_host(JacPoint(*(a[:m] for a in P)))
+    aff_q = ops.to_affine_host(JacPoint(*(a[:m] for a in Qg)))
+    gen = torch.Generator().manual_seed(rng.randrange(1 << 31))
+    idx = torch.randint(0, P[0].shape[0], (SECP_N,), generator=gen).to(dev)
+    for kind, ins in cases.items():
+        got = entry(kind, [a[:m] for a in ins])
+        oracle = [a + a for a in aff_p] if kind == "pdbl" else [
+            a + b for a, b in zip(aff_p, aff_q)]
+        require(ops.to_affine_host(JacPoint(*got)) == oracle,
+                ("K3 secp256k1 against the oracle", kind))
+        args = [a[idx] for a in ins]
+        err = max_abs_err(entry(kind, args),
+                          fused.point_plain(kind, args, ops.F.p, ops.b3))
+        require(err == 0, ("K3 secp256k1", kind, SECP_N, err))
+        time_point(results, f"secp_{kind}", kind, args, ops.F.p, ops.b3,
+                   launch=lambda: entry(kind, args))
+    require(fused.point.launches > before,
+            "secp_proj_ops launched no K3 kernel")
 
 
 def phase2(dev, rng, results):
@@ -875,16 +975,7 @@ def phase2_k21(dev, rng, results):
     err = max_abs_err(fused.point("padd", ins, Fq.p, b3),
                       fused.point_plain("padd", ins, Fq.p, b3))
     require(err == 0, ("K3 padd", "k21", err))
-    r = shape_result(
-        results, "K3", "k21", n=m, max_abs_err=err,
-        ms=cuda_ms(lambda: fused.point("padd", ins, Fq.p, b3), 50),
-        plain_ms=cuda_ms(lambda: fused.point_plain("padd", ins, Fq.p, b3), 2),
-        device_ms=kernel_device_ms(lambda: fused.point("padd", ins, Fq.p, b3),
-                                   "point_kernel"),
-        **formula_bound([(m, PADD)], m * 9 * ROW))
-    log(f"K3 padd  bit-exact (k21, n={m}): kernel {r['ms']:.4f} ms a call "
-        f"({fmt_ms(r['device_ms'])} on the device), plain "
-        f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4g} ms")
+    time_point(results, "k21", "padd", ins, Fq.p, b3)
 
     pairs, buckets = 2 * n, 2 * (1 << 15)  # id `buckets` is digit 0
     ids = torch.sort(torch.randint(0, buckets + 1, (pairs,), generator=gen))[0]
@@ -1739,6 +1830,29 @@ def exp_mul_ragged(dev) -> dict:
     return out
 
 
+def dot_library(kind: str, lhs, x0, n_mm: int):
+    """K11's dot chain through torch._int_mm / torch.matmul: a yardstick,
+    timed only."""
+    acc, x = None, x0
+    lb = lhs if kind == "i8dot" else lhs.to(torch.bfloat16)
+    for _ in range(n_mm):
+        if kind == "i8dot":
+            y = torch._int_mm(lb, x)
+            x = y[:32].to(torch.int8)
+        else:
+            y = torch.matmul(lb, x).float()
+            x = (y[:32] * 1e-3).to(torch.bfloat16)
+        acc = y if acc is None else acc + y
+    return acc
+
+
+# K11's dots are timed again at these widths of DOT_CHECK_W (the kernel,
+# its plain version and the library's chain, in one run)
+DOT_TIMED_W = (1 << 18, (1 << 14) - 8)
+# K10's variants are held to their plain versions and timed at B = 2^20 too
+K10_WIDE_B = 1 << 20
+
+
 def phase_experiments(dev, results, loops: dict, exp_report: dict) -> dict:
     """The experiments path: each module's `main` at the scripts' default
     sizes on the card (exp_vpu_rates: 16 x 2^14 lanes, chain 512, 64
@@ -1830,19 +1944,7 @@ def phase_experiments(dev, results, loops: dict, exp_report: dict) -> dict:
         err = dot_error(kind, got, want)
 
         def library(kind=kind, lhs=lhs, x0=x0):
-            """The same chain through torch._int_mm / torch.matmul: a
-            yardstick, timed only."""
-            acc, x = None, x0
-            lb = lhs if kind == "i8dot" else lhs.to(torch.bfloat16)
-            for _ in range(n_mm):
-                if kind == "i8dot":
-                    y = torch._int_mm(lb, x)
-                    x = y[:32].to(torch.int8)
-                else:
-                    y = torch.matmul(lb, x).float()
-                    x = (y[:32] * 1e-3).to(torch.bfloat16)
-                acc = y if acc is None else acc + y
-            return acc
+            return dot_library(kind, lhs, x0, n_mm)
 
         macs = 64 * 32 * W * n_mm
         r = shape_result(
@@ -1869,9 +1971,25 @@ def phase_experiments(dev, results, loops: dict, exp_report: dict) -> dict:
             _, (lhs, x0) = vr.make_dot(kind, W_c, n_mm,
                                        *dot_sides(rng_w, kind, W_c),
                                        device=dev)
-            err = dot_error(kind, vr.dot_chain(kind, lhs, x0, n_mm),
-                            vr.dot_chain_plain(kind, lhs, x0, n_mm))
+            want, plain_ms = timed(lambda: vr.dot_chain_plain(kind, lhs, x0,
+                                                              n_mm))
+            err = dot_error(kind, vr.dot_chain(kind, lhs, x0, n_mm), want)
             checked.setdefault(kind, []).append([W_c, err])
+            if W_c in DOT_TIMED_W:
+                def fn(kind=kind, lhs=lhs, x0=x0):
+                    return vr.dot_chain(kind, lhs, x0, n_mm)
+                r = shape_result(
+                    results, "K11dot", f"{kind} W={W_c}", W=W_c, n_mm=n_mm,
+                    max_abs_err=err, exact=kind == "i8dot",
+                    ms=cuda_ms(fn, 20), plain_ms=plain_ms,
+                    library_ms=cuda_ms(
+                        lambda: dot_library(kind, lhs, x0, n_mm), 20),
+                    device_ms=kernel_device_ms(fn, "dot_chain_kernel"),
+                    **dot_bound(kind, W_c, n_mm))
+                log(f"K11 {kind} at W = {W_c}: {r['ms']:.4f} ms a call "
+                    f"({fmt_ms(r['device_ms'])} on the device), plain "
+                    f"{plain_ms:.4f} ms, library {r['library_ms']:.4f} ms, "
+                    f"bound {r['bound_ms']:.4g} ms")
     results["k11_dot_checks"] = checked
     log(f"K11 dots against their plain versions at W = {list(DOT_CHECK_W)} "
         f"({time.time() - t_dot:.1f} s): i8dot bit-exact, bf16dot within "
@@ -1967,6 +2085,29 @@ def phase_experiments(dev, results, loops: dict, exp_report: dict) -> dict:
             f"device), plain {plain_ms:.4f} ms, bound {r['bound_ms']:.4g} ms,"
             f" issue bound {r['issue_bound_ms']:.4g} ms "
             f"({r['issue_bound_by']})")
+    # K10 at B = 2^20: each variant against its plain version, timed
+    Bw = K10_WIDE_B
+    a = limb_rows(rng, Bw, 0xFFFF, dev, edge=(0, 1, Fr.p - 1,
+                                              (1 << 256) - 1))
+    b = limb_rows(rng, Bw, 0xFFFF, dev, edge=(Fr.p - 1, 0, Fr.p - 1,
+                                              (1 << 256) - 1))
+    for variant in mx.VARIANTS:
+        def fn(variant=variant):
+            return mx.mont_mul_mxu(a, b, variant, Fr.p)
+        want, plain_ms = timed(lambda: mx.mont_mul_mxu_plain(
+            a, b, variant, Fr.p))
+        err = max_abs_err([fn()], [want])
+        require(err == 0, ("K10", variant, Bw, err))
+        ops = Bw * (MUL_OPS if variant in mx.PRODUCTS else PRODUCT_OPS)
+        r = shape_result(
+            results, "K10", f"{variant} B={Bw}", B=Bw, max_abs_err=err,
+            ms=cuda_ms(fn, 20), plain_ms=plain_ms,
+            device_ms=kernel_device_ms(fn, "mxu_mul_kernel"),
+            **bound(ops, Bw * 3 * ROW))
+        log(f"K10 {variant:10s} bit-exact (B={Bw}): {r['ms']:.4f} ms a call "
+            f"({fmt_ms(r['device_ms'])} on the device), plain "
+            f"{plain_ms:.4f} ms, bound {r['bound_ms']:.4g} ms")
+    del a, b
     results["experiments_ragged"] = exp_mul_ragged(dev)
     log(f"K9 and K10 bit-exact at ragged sizes: "
         f"{results['experiments_ragged']}")
@@ -2172,6 +2313,171 @@ def phase_plume(dev, srs_dir, times):
             k=k, kp=times["keygen_peak_bytes"] / 1e9,
             pp=times["prove_peak_bytes"] / 1e9, **times))
     return srs, pk, inst
+
+
+def load_script(name: str):
+    """scripts/<name>.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_enc(dev, srs_dir, times):
+    """The voter circuit with the Paillier encryption check on and PLUME
+    off at k=18 (the JAX package's `prove_voter_tpu.py 18 --no-plume
+    --enc`) through scripts/prove_voter_torch.py's main: its stats,
+    instances and vk shape the frozen JAX ones (21 advice, 3 lookup, 26
+    permutation columns, ext 2^3); the proof verifies and a flipped byte
+    is rejected; K1-K6's launches over its warm prove (fixed-base
+    commits at 2^18: K1-K4 each > 0)."""
+    from zksnap_tpu_torch.prover.plonk import verify
+
+    with open(os.path.join(VECTORS, "torch_port_v1.json")) as f:
+        v = json.load(f)["voter_enc_k18"]
+    k = v["k"]
+    out = load_script("prove_voter_torch").main(
+        [str(k), "--no-plume", "--enc", "--srs-cache", srs_dir])
+    ctx, inst, pk, srs = out["ctx"], out["instances"], out["pk"], out["srs"]
+    stats = {key: int(x) for key, x in ctx.stats().items()
+             if isinstance(x, int)}
+    require(stats == v["stats"], (stats, v["stats"]))
+    require([str(x) for x in inst] == v["instances"],
+            "Paillier voter instances differ from the frozen ones")
+    shape = {key: getattr(pk.vk, key) for key in v["vk_shape"]}
+    require(shape == v["vk_shape"], (shape, v["vk_shape"]))
+    proof = out["proof"]
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    require(not verify(pk.vk, srs.g2, srs.tau_g2, inst, bytes(bad)),
+            "tampered Paillier voter proof accepted")
+    st = out["stages"]
+    warm = st["prove_warm"][0]
+    require(all(warm["launches"][kn] > 0 for kn in ("K1", "K2", "K3", "K4")),
+            ("K1-K4 over the Paillier voter's warm prove", warm["launches"]))
+    for name in ("witness", "check", "srs", "keygen", "prove", "verify",
+                 "prove_warm"):
+        times[name] = st[name]
+    log(f"voter k={k} Paillier: {stats['advice_cells']} advice cells, stats, "
+        f"instances and vk {shape} equal the frozen JAX ones; proof of "
+        f"{len(proof)} bytes verifies, one flipped byte is rejected")
+    log("voter k={k} Paillier: synthesis {w:.3f} s, check {c:.3f} s, SRS "
+        "{s:.3f} s, keygen {kg:.3f} s (peak {kp:.2f} GB), prove cold {pc:.3f}"
+        " s (peak {pp:.2f} GB), warm {pw:.3f} s (peak {pwp:.2f} GB), verify "
+        "{vf:.3f} s; K1-K6 over the warm prove {ln}".format(
+            k=k, w=st["witness"][0]["s"], c=st["check"][0]["s"],
+            s=st["srs"][0]["s"], kg=st["keygen"][0]["s"],
+            kp=st["keygen"][0]["peak_bytes"] / 1e9,
+            pc=st["prove"][0]["s"], pp=st["prove"][0]["peak_bytes"] / 1e9,
+            pw=warm["s"], pwp=warm["peak_bytes"] / 1e9,
+            vf=st["verify"][0]["s"], ln=warm["launches"]))
+    return pk, inst
+
+
+POLY_K, POLY_EXT = 18, 3  # the Paillier voter's domain and extension
+POLY_SMALL_K = 7
+
+
+@contextlib.contextmanager
+def plain_field():
+    """Every field operation through K1's and K2's plain versions, on
+    whatever device its operands lie: the plain path of a function built
+    on the field."""
+    from zksnap_tpu_torch.fields import field
+    from zksnap_tpu_torch.fields import pallas_mont as pm
+
+    saved = field.mont_mul, field.mont_addsub
+    field.mont_mul, field.mont_addsub = pm.mont_mul_plain, pm.mont_addsub_plain
+    try:
+        yield
+    finally:
+        field.mont_mul, field.mont_addsub = saved
+
+
+def poly_five(k: int, dev, seed: int) -> dict:
+    """The five poly_device functions the prover does not call, at 2^k
+    rows (the coset pair at ext POLY_EXT) on seeded inputs made on the
+    host and moved to `dev`: name -> a thunk."""
+    from zksnap_tpu_torch.fields import bn254_fr
+    from zksnap_tpu_torch.prover import poly_device as pd
+
+    F = bn254_fr()
+    n = 1 << k
+    vals = random_canonical(n, seed, "cpu").to(dev)
+    polys = random_canonical(3 * n, seed + 1, "cpu").reshape(3, n, 16).to(dev)
+    base = random_canonical(1, seed + 2, "cpu")[0].to(dev)
+    rng = random.Random(seed)
+    x = rng.randrange(F.p)
+    coefs = [rng.randrange(F.p) for _ in range(3)]
+    ext = pd.coset_extended_evals(vals, k, POLY_EXT)
+    return {
+        "coset_extended_evals": lambda: pd.coset_extended_evals(
+            vals, k, POLY_EXT),
+        "coset_interpolate": lambda: pd.coset_interpolate(ext, k, POLY_EXT),
+        "pow_series_traced": lambda: pd.pow_series_traced(base, n),
+        "batch_eval": lambda: pd.batch_eval(polys, x, k),
+        "rlc": lambda: pd.rlc(polys, coefs, k)}, vals, ext
+
+
+def same_result(a, b) -> bool:
+    """Two results of a poly function (limb tensors or lists of ints) are
+    equal, bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and torch.equal(a.cpu(), b.cpu())
+    return a == b
+
+
+def phase_poly_extra(dev, times):
+    """poly_device's five functions that the prover does not call: at
+    k = POLY_SMALL_K on the card against the CPU; at k = POLY_K (the coset
+    pair over 2^21 rows at ext POLY_EXT) against their plain path on the
+    card (K1's and K2's plain versions), bit for bit, both timed; the round
+    trip against the zero-padded coefficients; coset_interpolate sharded
+    over a virtual mesh of MESH_SHARDS x the card against one card."""
+    from zksnap_tpu_torch.fields.pallas_mont import mont_addsub, mont_mul
+    from zksnap_tpu_torch.prover import poly_device as pd
+
+    small, _, _ = poly_five(POLY_SMALL_K, "cpu", 20261020)
+    card, _, _ = poly_five(POLY_SMALL_K, dev, 20261020)
+    for name, fn in small.items():
+        require(same_result(card[name](), fn()),
+                (f"{name} at k={POLY_SMALL_K}: the card against the CPU"))
+    fns, vals, ext = poly_five(POLY_K, dev, 20261021)
+    for name, fn in fns.items():
+        fn()  # its tables made once, as a prover's second call finds them
+        before = mont_mul.launches + mont_addsub.launches
+        got, ms = timed(fn)
+        launches = mont_mul.launches + mont_addsub.launches - before
+        with plain_field():
+            want, plain_ms = timed(fn)
+        require(same_result(got, want),
+                (f"{name} at k={POLY_K}: the kernels against the plain path"))
+        times[name] = {"ms": ms, "plain_ms": plain_ms,
+                       "k1_k2_launches": launches}
+    n = 1 << POLY_K
+    back = fns["coset_interpolate"]()
+    require(torch.equal(back[:n], pd.evals_to_coeffs(vals, POLY_K))
+            and not back[n:].any(), "coset_interpolate(coset_extended_evals"
+            "(v)) is not v's zero-padded coefficients")
+    with pd.prover_mesh(card_mesh([dev] * MESH_SHARDS)):
+        require(pd._mesh_for(n << POLY_EXT) is not None,
+                "the mesh does not split the extended domain")
+        sharded, times["coset_interpolate_sharded_ms"] = timed(
+            lambda: pd.coset_interpolate(ext, POLY_K, POLY_EXT))
+    require(torch.equal(sharded, back),
+            "sharded coset_interpolate differs from one card's")
+    log(f"poly_device at k={POLY_K}, ext 2^{POLY_EXT}: the five functions "
+        f"bit-exact against their plain path, and at k={POLY_SMALL_K} against "
+        "the CPU; the round trip gives the zero-padded coefficients; "
+        f"coset_interpolate on a virtual mesh of {MESH_SHARDS} equals one "
+        "card's (" + "; ".join(
+            f"{k} {v['ms']:.1f} ms, plain {v['plain_ms']:.1f} ms"
+            for k, v in times.items() if isinstance(v, dict))
+        + f"; sharded interpolate {times['coset_interpolate_sharded_ms']:.1f}"
+        " ms)")
 
 
 def fused_commit_parity(srs, times):
@@ -2724,18 +3030,6 @@ def phase_lazy_k7(dev, srs_dir, times):
         "verifies")
 
 
-def load_wrapper_script():
-    """scripts/prove_wrapper_torch.py as a module."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "prove_wrapper_torch",
-        os.path.join(ROOT, "scripts", "prove_wrapper_torch.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def phase_wrapper_toy(work, times, rounds: int = 2):
     """The wrapper circuit at scripts/prove_wrapper_tpu.py --toy's shape
     through scripts/prove_wrapper_torch.py (main(["2", "18", "--toy"])): the children's
@@ -2750,7 +3044,7 @@ def phase_wrapper_toy(work, times, rounds: int = 2):
 
     with open(os.path.join(VECTORS, "torch_port_v1.json")) as f:
         v = json.load(f)["wrapper_toy"]
-    out = load_wrapper_script().main([str(rounds), str(v["k_wrap"]), "--toy",
+    out = load_script("prove_wrapper_torch").main([str(rounds), str(v["k_wrap"]), "--toy",
                               "--cache", os.path.join(work, "wrapper")])
     cfg, srs = out["cfg"], out["srs"]
     vvk, svk = out["child_vks"]
@@ -3083,8 +3377,10 @@ def main():
 
     rng = random.Random(20261016)
     results = {}
+    t_checks = time.time()
     phase2(dev, rng, results)
     phase2_k21(dev, rng, results)
+    check_secp_rcb(dev, results)
     phase2_reduce(dev, rng, results)
     check_ladder_fit(dev, rng, results)
     launches_k7_k8 = phase_point_batch(dev, rng, results)
@@ -3101,6 +3397,8 @@ def main():
             f"-byte stack frame, {r['LDL/STL']} LDL/STL; {r['steps_a_trip']}"
             f" steps a trip of its step loop, a step {r['a_step']}")
     require_dots(dots)
+    checks_s = time.time() - t_checks
+    log(f"kernel checks (phase 2): {checks_s:.1f} s")
     t_exp = time.time()
     launches_exp = phase_experiments(dev, results, loops, exp_report)
     exp_s = time.time() - t_exp
@@ -3141,12 +3439,14 @@ def main():
         """Drive one path with the counts set to 0 just before it and read
         just after; each kernel in `needs` must have launched."""
         zero_counts()
+        t0 = time.time()
         out = fn()
         torch.cuda.synchronize()
+        path_seconds[name] = time.time() - t0
         counts = read_counts()
         copies = copy_counts()
-        log(f"kernel launches over the {name} path: {counts}; operands "
-            f"copied: {copies}")
+        log(f"kernel launches over the {name} path ({path_seconds[name]:.1f}"
+            f" s): {counts}; operands copied: {copies}")
         require(all(counts[k] > 0 for k in needs), (name, counts))
         path_launches[name] = counts
         path_copies[name] = copies
@@ -3157,7 +3457,8 @@ def main():
     k13, k21, srs15, protocol, serving, cli_times = {}, {}, {}, {}, {}, {}
     lazy, poseidon, wrap = {}, {}, {}
     mesh7, mesh21, warm13 = {}, {}, {}
-    path_launches, path_copies = {}, {}
+    enc18, poly18 = {}, {}
+    path_launches, path_copies, path_seconds = {}, {}, {}
     k1_k4 = ("K1", "K2", "K3", "K4")
     try:
         phase3(dev, work)
@@ -3178,6 +3479,12 @@ def main():
         fused_commit_parity(srs, k21)
         fixed_base_commit_2p21(srs, k21)
         del srs
+        path("poly_device k=18", lambda: phase_poly_extra(dev, poly18),
+             ("K1", "K2"))
+        pk, inst = path("Paillier voter k=18",
+                        lambda: phase_enc(dev, work, enc18), k1_k4)
+        profile_prove(pk, inst, enc18)
+        del pk
         path("ceremony SRS k=15",
              lambda: phase_ceremony_srs(dev, work, srs15), ("K1", "K2", "K3"))
         path("protocol k=13", lambda: phase_protocol(dev, protocol), k1_k4)
@@ -3240,13 +3547,14 @@ def main():
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({**line, "voter_k13": k13, "voter_plume_k21": k21,
+                   "voter_enc_k18": enc18, "poly_device_k18": poly18,
                    "ceremony_srs_k15": srs15, "protocol_k13": protocol,
                    "server_k13": serving, "cli_state_k15": cli_times,
                    "lazy_k7": lazy, "poseidon_2p16": poseidon,
                    "wrapper_toy": wrap, "mesh_k7": mesh7,
                    "mesh_k21": mesh21, "warm_prove_k13": warm13,
                    "path_launches": path_launches,
-                   "path_copies": path_copies,
+                   "path_copies": path_copies, "path_seconds": path_seconds,
                    "k1_k2_kernels": field_report,
                    "field_checks": results["field_checks"],
                    "ntt_2p21": results["ntt_2p21"],
@@ -3264,7 +3572,7 @@ def main():
                               if k + "_shapes" in results},
                    "experiment_lines": results["experiment_lines"],
                    "launches_experiments": launches_exp, "chain_loops": loops,
-                   "experiments_s": exp_s,
+                   "experiments_s": exp_s, "kernel_checks_s": checks_s,
                    "device_ms": {k: results[k]["device_ms"] for k in meta},
                    "build_s": build_s, "total_s": time.time() - t_start,
                    "nvidia_smi": smi.stdout.strip()}, f, indent=1)

@@ -76,12 +76,25 @@ PyTorch port (zksnap_tpu_torch) is held to without rerunning the JAX prover.
   (p) `srs_k7_arrays`: the six arrays of (b) themselves, each as base64
       of its zlib-compressed little-endian uint32 bytes, with their
       sha256 (the port's delivery tests start from them; the port's own
-      K=7 SRS generation is held to (b) by tests/test_torch_prover.py).
+      K=7 SRS generation is held to (b) by tests/test_torch_prover.py);
+  (q) `voter_enc_k18`: the voter circuit with the Paillier encryption
+      check on and PLUME off at k=18 (`VoterFlags(check_plume=False,
+      check_encryption=True)`, inputs from `random.Random(20260817)`,
+      lookup_bits=14, as scripts/prove_voter_tpu.py 18 --no-plume --enc
+      makes it): synthesis stats, instances and the layout's vk shape
+      (host code only; no keygen);
+  (r) `poly_extra`: `coset_extended_evals` and `coset_interpolate` of
+      zksnap_tpu/prover/poly_device.py at K=7 with ext_log 2 and 3,
+      `batch_eval` and `rlc` of three polys at K=7 and
+      `pow_series_traced` of one value to 1, 2, 5 and 128 powers, on
+      inputs from `poly_extra_inputs` below: the sha256 of each output's
+      uint32 limbs and batch_eval's integers (each function's jit
+      compiles for 10-30 s).
 
 Run on the CPU:  python scripts/gen_torch_port_vectors.py [part ...]
 with parts among k7, voter_k13, msm, reduce, ladder, plume, pallas_point,
 state_k15, state_k13, srs_file, exp_mul, wrapper_toy, poseidon, four_step,
-srs_k7_arrays (all by default); the parts named replace their entries in
+srs_k7_arrays, voter_enc_k18, poly_extra (all by default); the parts named replace their entries in
 the existing file.
 """
 
@@ -114,6 +127,8 @@ REDUCE_SEED = 26
 REDUCE_CASES = ((3, 3, True), (3, 2, False))  # (c, W, signed)
 LADDER_SEED, LADDER_CASES = 29, ((16, 1), (3, 2))  # (c, W)
 PLUME_K, PLUME_LOOKUP_BITS = 21, 14
+ENC_K, ENC_LOOKUP_BITS = 18, 14
+POLY_SEED, POLY_K, POLY_EXT, POLY_POWS = 33, 7, (2, 3), (1, 2, 5, 128)
 POINT_SEED, POINT_N = 27, 8
 STATE_K, STATE_SMALL_K, STATE_SEED = 15, 13, 20260817
 EXP_MUL_SEED, EXP_MUL_N = 28, 256
@@ -124,7 +139,8 @@ FOUR_STEP_SEED, FOUR_STEP_K, FOUR_STEP_NDEV = 32, 9, (2, 4)
 PARTS = ("k7", "voter_k13", "msm", "reduce", "ladder", "plume",
          "pallas_point",
          "state_k15", "state_k13", "srs_file", "exp_mul", "wrapper_toy",
-         "poseidon", "four_step", "srs_k7_arrays")
+         "poseidon", "four_step", "srs_k7_arrays", "voter_enc_k18",
+         "poly_extra")
 
 
 def vk_digest(vk) -> str:
@@ -371,26 +387,27 @@ def part_ladder() -> dict:
     return {"ladder_small": [ladder_case(*case) for case in LADDER_CASES]}
 
 
-def part_plume() -> dict:
-    from zksnap_tpu.circuits.voter import (VoterFlags, expected_instances,
-                                           voter_circuit)
+def voter_layout_part(k: int, lookup_bits: int, flags) -> dict:
+    """A voter synthesis at 2^k rows from the seeded inputs, checked: its
+    stats, instances and the layout's vk shape (host code only)."""
+    from zksnap_tpu.circuits.voter import expected_instances, voter_circuit
     from zksnap_tpu.natives import generate_random_voter_circuit_inputs
     from zksnap_tpu.prover.keygen import (PERM_CHUNK, layout_circuit,
                                           quotient_ext_log)
     from zksnap_tpu.trace import Context, check
 
     inp = generate_random_voter_circuit_inputs(random.Random(VOTER_SEED))
-    ctx = Context(lookup_bits=PLUME_LOOKUP_BITS)
+    ctx = Context(lookup_bits=lookup_bits)
     pub = []
-    voter_circuit(ctx, inp, pub, VoterFlags())
+    voter_circuit(ctx, inp, pub, flags)
     inst = [c.value for c in pub]
     assert inst == expected_instances(inp)
     check(ctx, inst)
-    lay = layout_circuit(ctx, PLUME_K)
+    lay = layout_circuit(ctx, k)
     n_perm = len(lay.perm_columns)
-    return {"voter_plume_k21": {
-        "k": PLUME_K, "srs_seed": "dev", "inputs_seed": VOTER_SEED,
-        "lookup_bits": PLUME_LOOKUP_BITS, "check_plume": True,
+    return {
+        "k": k, "srs_seed": "dev", "inputs_seed": VOTER_SEED,
+        "lookup_bits": lookup_bits, "check_plume": flags.check_plume,
         "stats": {k_: int(v) for k_, v in ctx.stats().items()
                   if isinstance(v, int)},
         "instances": [str(v) for v in inst],
@@ -398,7 +415,23 @@ def part_plume() -> dict:
                      "n_perm": n_perm, "n_z": -(-n_perm // PERM_CHUNK),
                      "usable": lay.usable,
                      "ext_log": quotient_ext_log(lay.n_lookup)},
-    }}
+    }
+
+
+def part_plume() -> dict:
+    from zksnap_tpu.circuits.voter import VoterFlags
+
+    return {"voter_plume_k21": voter_layout_part(
+        PLUME_K, PLUME_LOOKUP_BITS, VoterFlags())}
+
+
+def part_voter_enc_k18() -> dict:
+    from zksnap_tpu.circuits.voter import VoterFlags
+
+    out = voter_layout_part(ENC_K, ENC_LOOKUP_BITS, VoterFlags(
+        check_plume=False, check_encryption=True))
+    out["check_encryption"] = True
+    return {"voter_enc_k18": out}
 
 
 class _BlockRef:
@@ -770,6 +803,51 @@ def part_four_step() -> dict:
                 hashlib.sha256(np.ascontiguousarray(y, dtype="<u4")
                                .tobytes()).hexdigest())
     return {"four_step": {"seed": FOUR_STEP_SEED, "k": k, "sha256": out}}
+
+
+
+def poly_extra_inputs(seed: int, p: int, k: int) -> dict:
+    """From the seed: canonical values of one poly a ext_log of
+    POLY_EXT, then three polys, a point for batch_eval, rlc's three
+    coefficients and pow_series_traced's base; the port's tests make the
+    same ones."""
+    rng = random.Random(seed)
+    n = 1 << k
+    return {"ext": {e: [rng.randrange(p) for _ in range(n)]
+                    for e in POLY_EXT},
+            "polys": [[rng.randrange(p) for _ in range(n)] for _ in range(3)],
+            "x": rng.randrange(p),
+            "coefs": [rng.randrange(p) for _ in range(3)],
+            "base": rng.randrange(p)}
+
+
+def part_poly_extra() -> dict:
+    import numpy as np
+
+    from zksnap_tpu.fields.field import bn254_fr
+    from zksnap_tpu.prover import poly_device as jpd
+
+    F = bn254_fr()
+    k = POLY_K
+    inp = poly_extra_inputs(POLY_SEED, F.p, k)
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(
+            np.asarray(a), dtype="<u4").tobytes()).hexdigest()
+
+    out = {"seed": POLY_SEED, "k": k}
+    for e, vals in inp["ext"].items():
+        ext = jpd.coset_extended_evals(F.to_mont(vals), k, e)
+        out[f"coset_extended_evals_{e}"] = sha(ext)
+        out[f"coset_interpolate_{e}"] = sha(jpd.coset_interpolate(ext, k, e))
+    polys = F.to_mont([v for r in inp["polys"] for v in r]).reshape(
+        3, 1 << k, 16)
+    out["batch_eval"] = [str(v) for v in jpd.batch_eval(polys, inp["x"], k)]
+    out["rlc"] = sha(jpd.rlc(polys, inp["coefs"], k))
+    base = F.to_mont(inp["base"])
+    for n in POLY_POWS:
+        out[f"pow_series_traced_{n}"] = sha(jpd.pow_series_traced(base, n))
+    return {"poly_extra": out}
 
 
 if __name__ == "__main__":

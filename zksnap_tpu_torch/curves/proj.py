@@ -14,9 +14,9 @@ import functools
 import torch
 
 from ..fields.common import N_LIMBS
-from ..fields.field import PrimeField, bn254_fq
+from ..fields.field import PrimeField, bn254_fq, secp256k1_fp
 from .jacobian import CurveOps, JacPoint, _affine_out
-from .native import BN254_G1, AffinePoint, CurveParams
+from .native import BN254_G1, SECP256K1, AffinePoint, CurveParams
 
 
 class ProjOps(CurveOps):
@@ -67,3 +67,11 @@ class ProjOps(CurveOps):
 def bn254_proj_ops() -> ProjOps:
     return ProjOps(BN254_G1, bn254_fq())
 
+
+@functools.cache
+def secp_proj_ops() -> ProjOps:
+    """secp256k1's RCB ops (b3 = 21): on CUDA tensors every group
+    operation is a launch of K3's padd, pmadd or pdbl kind at secp256k1's
+    modulus, on CPU tensors its plain version; its points are made on the
+    card unless a call names another device."""
+    return ProjOps(SECP256K1, secp256k1_fp())

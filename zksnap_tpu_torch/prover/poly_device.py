@@ -5,10 +5,14 @@
     over precomputed shifted tables for 2^12 <= n <= 2^20, variable-base
     Pippenger otherwise, both in RCB projective coordinates;
   * `coset_evals`, `evals_to_coeffs`, `coeffs_to_evals` -- NTTs;
+  * `coset_extended_evals` / `coset_interpolate` -- onto the extended
+    coset g*H_ext and back (the reference's `coeff_to_extended`);
   * `eval_coeffs_list` -- coefficient-form polys evaluated at a point;
+    `batch_eval` -- evaluation-form polys, barycentric;
+  * `pow_series_traced` -- the powers of a device value;
   * `opening_witness_evals` -- (f - f(p)) / (X - p) pointwise on the
     domain with a batched inverse;
-  * `rlc_list` -- random linear combinations.
+  * `rlc`, `rlc_list` -- random linear combinations.
 
 Every tensor stays on the device of its inputs; `device` arguments name
 it where a function creates tensors from host data.  Inside
@@ -284,6 +288,44 @@ def coset_evals(coeffs, s_pows, k: int):
     return coeffs_to_evals(FR.mul(_u32(coeffs), s_pows), k)
 
 
+# -- coset extended evaluation ----------------------------------------------
+
+def coset_extended_evals(values, k: int, ext_factor_log: int):
+    """values [n,16] (Montgomery, natural order on H) -> evaluations on
+    the coset g*H_ext [2^(k+ext_factor_log), 16]: iNTT, times g^i,
+    zero-padded, forward NTT (each NTT sharded under a mesh that splits
+    its domain)."""
+    n = 1 << k
+    ke = k + ext_factor_log
+    coeffs = FR.mul(evals_to_coeffs(values, k),
+                    pow_series(FR.generator, n, values.device))
+    padded = torch.cat([coeffs, coeffs.new_zeros(((1 << ke) - n, N_LIMBS))])
+    return coeffs_to_evals(padded, ke)
+
+
+def coset_interpolate(evals, k: int, ext_factor_log: int):
+    """Inverse of `coset_extended_evals`: evaluations on g*H_ext ->
+    coefficients [2^(k+ext_factor_log), 16]: iNTT (four-step under a mesh
+    that splits the extended domain), times g^-i."""
+    ke = k + ext_factor_log
+    return FR.mul(evals_to_coeffs(evals, ke),
+                  pow_series(pow(FR.generator, -1, FR.p), 1 << ke,
+                             evals.device))
+
+
+def pow_series_traced(base_mont, n: int):
+    """[n,16] powers of a device value base_mont ([16] Montgomery) by
+    log-depth doubling; for a host-known base `pow_series` is cheaper."""
+    size = max(1, 1 << (n - 1).bit_length())
+    arr = torch.stack([FR.one_t(base_mont.device), _u32(base_mont)])
+    length = 2
+    while length < size:
+        step = FR.mul(arr[-1], arr[1])
+        arr = torch.cat([arr, FR.mul(arr, step[None, :])])
+        length *= 2
+    return arr[:n]
+
+
 # -- mesh-sharded NTT plumbing ------------------------------------------------
 
 @functools.lru_cache(maxsize=32)
@@ -306,18 +348,40 @@ def _four_step_natural(x, k: int, sh, inverse: bool):
 
 # -- batched evaluation at a point ------------------------------------------
 
+def _sum_rows(acc):
+    """[P, n, 16] -> [P, 16]: the sum over n (a power of two), a tree of
+    adds."""
+    m = acc.shape[1]
+    while m > 1:
+        acc = FR.add(acc[:, : m // 2], acc[:, m // 2 : m])
+        m //= 2
+    return acc[:, 0]
+
+
 def eval_coeffs_list(polys: list, x_int: int, k: int) -> list[int]:
     """Coefficient-form polys -> values at x (host ints): a multiply by
     the power table of x and a tree sum, for the stacked list."""
     n = 1 << k
     dev = polys[0].device
     pw = pow_series_uncached(x_int, n, dev)
-    acc = FR.mul(torch.stack([_u32(p) for p in polys]), pw[None])
-    m = n
-    while m > 1:
-        acc = FR.add(acc[:, : m // 2], acc[:, m // 2 : m])
-        m //= 2
-    return FR.from_mont(acc[:, 0])
+    return FR.from_mont(_sum_rows(
+        FR.mul(torch.stack([_u32(p) for p in polys]), pw[None])))
+
+
+def batch_eval(polys, x_int: int, k: int) -> list[int]:
+    """polys [P, n, 16] Montgomery evaluations on H -> [P] ints at x, by
+    the barycentric formula f(x) = (x^n - 1)/n * sum_i f_i w^i / (x - w^i)
+    (one batched inverse, then a multiply and a tree sum)."""
+    n = 1 << k
+    dev = polys.device
+    dom = domain(k)
+    x = FR.const_t(x_int, dev)
+    w = pow_series(dom.omega, n, dev)
+    inv = FR.batch_inv(FR.sub(x.expand(n, N_LIMBS), w))
+    zn = FR.sub(FR.pow_const(x, n), FR.one_t(dev))
+    scale = FR.mul(zn, FR.const_t(dom.n_inv, dev))
+    weights = FR.mul(FR.mul(w, inv), scale)
+    return FR.from_mont(_sum_rows(FR.mul(_u32(polys), weights[None])))
 
 
 # -- opening witness ---------------------------------------------------------
@@ -335,16 +399,20 @@ def opening_witness_evals(combined, eval_int: int, p_int: int, k: int):
 
 # -- random linear combination ------------------------------------------------
 
-def rlc_list(polys: list, coef_ints: list[int], k: int):
-    """sum_i coef_i * poly_i over a list of [n,16] polys: one stacked
-    multiply, then a tree of adds."""
-    dev = polys[0].device
+def rlc(polys, coef_ints: list[int], k: int):
+    """sum_i coef_i * polys[i] over a [P, n, 16] stack -> [n, 16]: one
+    stacked multiply, then a tree of adds."""
     coefs = torch.from_numpy(ints_to_limbs(
-        [c % FR.p * FR.R % FR.p for c in coef_ints])).to(dev)
-    acc = FR.mul(torch.stack([_u32(p) for p in polys]), coefs[:, None, :])
-    m = len(polys)
+        [c % FR.p * FR.R % FR.p for c in coef_ints])).to(polys.device)
+    acc = FR.mul(_u32(polys), coefs[:, None, :])
+    m = acc.shape[0]
     while m > 1:
         h = m // 2
         acc = torch.cat([FR.add(acc[:h], acc[m - h : m]), acc[h : m - h]])
         m = m - h
     return acc[0]
+
+
+def rlc_list(polys: list, coef_ints: list[int], k: int):
+    """`rlc` over a list of [n,16] polys."""
+    return rlc(torch.stack([_u32(p) for p in polys]), coef_ints, k)
