@@ -27,15 +27,18 @@ kernel (csrc/point.cu, csrc/bucket_scan.cu, csrc/reduce.cu), CPU runs the
 plain version below, which evaluates the same formula bodies with the
 plain field ops in the kernel's order (all values canonical, so the two
 agree bit for bit).  Each wrapper's `.launches` counts its calls that
-launch their kernels (K5's call is seven launches on the stream).
+launch their kernels (K5's call is seven launches on the stream); while
+tracing is on (`obs`), `.launch_ns` adds those calls' host time.
 """
 
 from __future__ import annotations
 
 import functools
+import time
 
 import torch
 
+from .. import obs
 from ..fields.common import N_LIMBS
 from ..fields.pallas_mont import mont_addsub_plain, mont_mul_plain
 
@@ -258,6 +261,7 @@ def point(kind: str, arrays, p: int, b3: int = 0):
     """Complete group operation `kind` over (x, y, z[, x2, y2, z2]) limb
     tensors [..., 16] (kernel K3).  b3 = 3b of the curve for the
     projective kinds, unused by the Jacobian ones."""
+    t0 = time.perf_counter_ns() if obs.ON else 0
     dev = _device_of(arrays)
     if dev.type == "cpu":
         return point_plain(kind, arrays, p, b3)
@@ -281,10 +285,13 @@ def point(kind: str, arrays, p: int, b3: int = 0):
             kernels.sm_count(dev.index), kernels.mod_ptr(p), stream)
     kernels.check(err, f"zk_point({kind})")
     point.launches += 1
+    if t0:
+        point.launch_ns += time.perf_counter_ns() - t0
     return tuple(o.reshape(*batch, N_LIMBS) for o in outs)
 
 
 point.launches = 0
+obs.register(point, "launches", "launch_ns")
 
 
 def _zero_one_zero(n: int, p: int, device):
@@ -328,6 +335,7 @@ def bucket_scan(pts, flags, M: int, K: int, p: int, b3: int = 0):
         restarts from the stream point).
     Returns (x, y, z) each [K, M, 16]: the running lane-local sums.
     """
+    t0 = time.perf_counter_ns() if obs.ON else 0
     dev = _device_of(list(pts) + [flags])
     if dev.type == "cpu":
         return bucket_scan_plain(pts, flags, M, K, p, b3)
@@ -344,10 +352,13 @@ def bucket_scan(pts, flags, M: int, K: int, p: int, b3: int = 0):
             1 if b3 else 0, int(b3), kernels.mod_ptr(p), stream)
     kernels.check(err, "zk_bucket_scan")
     bucket_scan.launches += 1
+    if t0:
+        bucket_scan.launch_ns += time.perf_counter_ns() - t0
     return tuple(outs)
 
 
 bucket_scan.launches = 0
+obs.register(bucket_scan, "launches", "launch_ns")
 
 
 # -- the fused Pippenger reduction: K5 and K6 --------------------------------
@@ -483,6 +494,7 @@ def weighted_suffix(flat, B: int, p: int, b3: int = 0):
     s2[w*B + b] = sum_{b' >= b} (b' - b + 1) * S[w, b'].
     Projective (RCB padd) for b3 != 0, Jacobian add for b3 == 0.  One
     call counts one launch: the kernel's seven passes on the stream."""
+    t0 = time.perf_counter_ns() if obs.ON else 0
     dev = _device_of(list(flat))
     if dev.type == "cpu":
         return weighted_suffix_plain(flat, B, p, b3)
@@ -510,10 +522,13 @@ def weighted_suffix(flat, B: int, p: int, b3: int = 0):
             kernels.mod_ptr(p), stream)
     kernels.check(err, "zk_weighted_suffix")
     weighted_suffix.launches += 1
+    if t0:
+        weighted_suffix.launch_ns += time.perf_counter_ns() - t0
     return tuple(outs)
 
 
 weighted_suffix.launches = 0
+obs.register(weighted_suffix, "launches", "launch_ns")
 
 
 def _check_ladder(wsums, W: int):
@@ -553,6 +568,7 @@ def ladder_tree(wsums, c: int, W: int, p: int, b3: int = 0):
     wsums: (x, y, z) each [W, 16].  Lane w of 128 doubles while
     i < c*w for i < c*(W-1), then a 7-round suffix tree sums the lanes.
     Returns the single combined point, (x, y, z) each [16]."""
+    t0 = time.perf_counter_ns() if obs.ON else 0
     dev = _device_of(list(wsums))
     if dev.type == "cpu":
         return ladder_tree_plain(wsums, c, W, p, b3)
@@ -570,7 +586,10 @@ def ladder_tree(wsums, c: int, W: int, p: int, b3: int = 0):
             1 if b3 else 0, int(b3), kernels.mod_ptr(p), stream)
     kernels.check(err, "zk_ladder_tree")
     ladder_tree.launches += 1
+    if t0:
+        ladder_tree.launch_ns += time.perf_counter_ns() - t0
     return tuple(o[0] for o in outs)
 
 
 ladder_tree.launches = 0
+obs.register(ladder_tree, "launches", "launch_ns")

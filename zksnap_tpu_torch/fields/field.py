@@ -16,6 +16,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import obs
 from .common import (
     LIMB_BITS,
     N_LIMBS,
@@ -58,9 +59,15 @@ class PrimeField:
         return torch.from_numpy(arr).to(device)
 
     def from_mont(self, limbs) -> list | int:
-        """Montgomery limb tensor -> python int(s) (host sync, host REDC)."""
-        canon = limbs.detach().cpu().numpy() if isinstance(
-            limbs, torch.Tensor) else np.asarray(limbs)
+        """Montgomery limb tensor -> python int(s) (host sync, host REDC;
+        the read is timed into `obs.wait_ns`, as is every copy from the
+        host to the card on the prover's path: PyTorch waits on the
+        stream for each)."""
+        if isinstance(limbs, torch.Tensor):
+            with obs.wait():
+                canon = limbs.detach().cpu().numpy()
+        else:
+            canon = np.asarray(limbs)
         if canon.ndim == 1:
             return limbs_to_int(canon) * self.R_inv % self.p
         return [v * self.R_inv % self.p for v in limbs_to_ints(canon)]
@@ -173,7 +180,9 @@ def _const_tensor(p: int, x: int | None, device: str) -> torch.Tensor:
     """Montgomery constant x (or, for x=None, the raw integer 1) as a [16]
     int32 tensor on `device` (cached: constants recur in every round)."""
     raw = 1 if x is None else x * (1 << R_BITS) % p
-    return torch.from_numpy(int_to_limbs(raw)).to(device)
+    t = torch.from_numpy(int_to_limbs(raw))
+    with obs.wait():
+        return t.to(device)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,9 @@ other device raises.  The kernels read each operand where it lies (a
 strided or broadcast view included, `operand_view`); an operand they
 cannot describe is copied to contiguous rows on the card first.
 `mont_mul.launches` / `mont_addsub.launches` count kernel launches,
-`mont_mul.copies` / `mont_addsub.copies` those copies.
+`mont_mul.copies` / `mont_addsub.copies` those copies.  While tracing
+is on (`obs`), `.launch_ns` adds each launch's host time and `.elements`
+its elements (`launch_elements`).
 
 Both return canonical values in [0, p), like the TPU kernels.
 """
@@ -17,9 +19,11 @@ Both return canonical values in [0, p), like the TPU kernels.
 from __future__ import annotations
 
 import functools
+import time
 
 import torch
 
+from .. import obs
 from .common import (
     LIMB_BITS,
     N_LIMBS,
@@ -208,6 +212,22 @@ def operand_rows(x, shape, n: int, counter):
     return (x.data_ptr(), inner, *divider(inner), s_outer, s_inner), x
 
 
+def unique_rows(x) -> int:
+    """Distinct [16]-limb rows of operand x, wherever it is broadcast: a
+    dimension of size 1 or stride 0 counts once."""
+    rows = 1
+    for size, stride in zip(x.shape[:-1], x.stride()[:-1]):
+        if stride:
+            rows *= size
+    return rows
+
+
+def launch_elements(n: int, a, b) -> int:
+    """The elements a K1/K2 launch of n output rows works on: its output
+    and each operand's distinct rows."""
+    return n + unique_rows(a) + unique_rows(b)
+
+
 def _device_kind(a, b) -> str:
     if a.device != b.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
@@ -222,6 +242,7 @@ def _launch(fn, a, b, p: int, mode: int | None):
     `fn` is the wrapper, whose counts this bumps."""
     from .. import kernels
 
+    t0 = time.perf_counter_ns() if obs.ON else 0
     shape = (a.shape if a.shape == b.shape
              else torch.broadcast_shapes(a.shape, b.shape))
     on = kernels.on_device(a, b)
@@ -248,6 +269,9 @@ def _launch(fn, a, b, p: int, mode: int | None):
                                      stream)
     kernels.check(err, "zk_mont_mul" if mode is None else "zk_mont_addsub")
     fn.launches += 1
+    if t0:
+        fn.launch_ns += time.perf_counter_ns() - t0
+        fn.elements += launch_elements(n, a, b)
     return out
 
 
@@ -261,6 +285,7 @@ def mont_mul(a, b, p: int):
 
 mont_mul.launches = 0
 mont_mul.copies = 0
+obs.register(mont_mul, "launches", "copies", "launch_ns", "elements")
 
 
 def mont_addsub(a, b, p: int, mode: str):
@@ -275,3 +300,4 @@ def mont_addsub(a, b, p: int, mode: str):
 
 mont_addsub.launches = 0
 mont_addsub.copies = 0
+obs.register(mont_addsub, "launches", "copies", "launch_ns", "elements")

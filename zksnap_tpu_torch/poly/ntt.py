@@ -18,6 +18,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import obs
 from ..fields.field import PrimeField
 from .domain import Domain, domain
 
@@ -40,7 +41,10 @@ def _ntt_impl(x, twiddles, k: int, F: PrimeField):
     twiddles: [n/2, 16] table of omega^i on x's device."""
     n = 1 << k
     lead = x.shape[:-2]
-    x = x[..., torch.from_numpy(_bitrev_perm(k)).to(x.device), :]
+    perm = torch.from_numpy(_bitrev_perm(k))
+    with obs.wait():  # a copy from the host waits on the stream
+        perm = perm.to(x.device)
+    x = x[..., perm, :]
     for s in range(k):
         m = 1 << s          # half-block
         nb = n >> (s + 1)   # number of blocks

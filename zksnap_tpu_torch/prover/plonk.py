@@ -6,7 +6,11 @@ columns -> beta_lk, beta, gamma -> logUp helper h and chained
 permutation grand products Z_c -> y -> quotient on the extended coset
 domain, streamed one coset and one constraint term at a time -> x ->
 evaluations -> v, u -> GWC opening witnesses.  All bulk math runs on the
-device of the proving key's SRS.
+device of the proving key's SRS.  With tracing on (`obs`), a proof is a
+`prove` span holding one span a round (`prove.witness`,
+`prove.grand_product`, `prove.quotient`, `prove.evals`,
+`prove.openings`), and keygen a `keygen` span holding `keygen.layout` and
+`keygen.commit`.
 
 `prove(pk, instances, rng)` takes its blinding randomness from `rng`
 (`rng.randrange(bound)`, in the reference's order: advice tails column
@@ -31,6 +35,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import obs
 from ..curves.jacobian import bn254_ops
 from ..curves.native import AffinePoint, BN254_G1
 from ..fields.common import ints_to_limbs, ints_to_limbs_fast
@@ -226,48 +231,52 @@ def _keygen_impl(ctx: Context, k: int, srs: SRS | None,
     from .keygen import quotient_ext_log
     from ..poly.domain import domain
 
-    layout = layout_circuit(ctx, k)
-    srs = srs or gen_srs(k, device=device)
-    dev = srs.g1.x.device
-    n_perm = len(layout.perm_columns)
-    n_z = -(-n_perm // PERM_CHUNK)
-    ext_log = quotient_ext_log(layout.n_lookup)
+    with obs.span("keygen", k=k):
+        with obs.span("keygen.layout"):
+            layout = layout_circuit(ctx, k)
+        srs = srs or gen_srs(k, device=device)
+        dev = srs.g1.x.device
+        n_perm = len(layout.perm_columns)
+        n_z = -(-n_perm // PERM_CHUNK)
+        ext_log = quotient_ext_log(layout.n_lookup)
 
-    fixed_host = {}
-    for i, q in enumerate(layout.q_cols):
-        fixed_host[f"q_{i}"] = q
-    fixed_host["const"] = layout.const_col
-    fixed_host["table"] = layout.table_col
-    fixed_host["active"] = layout.active_col
+        fixed_host = {}
+        for i, q in enumerate(layout.q_cols):
+            fixed_host[f"q_{i}"] = q
+        fixed_host["const"] = layout.const_col
+        fixed_host["table"] = layout.table_col
+        fixed_host["active"] = layout.active_col
 
-    commitments = {}
-    fixed_coeffs = {}
-    ops = bn254_ops()
-    n_fixed = len(fixed_host) + n_perm
-    lazy = n_fixed * layout.n * 32 > LAZY_FIXED_BYTES
+        commitments = {}
+        fixed_coeffs = {}
+        ops = bn254_ops()
+        n_fixed = len(fixed_host) + n_perm
+        lazy = n_fixed * layout.n * 32 > LAZY_FIXED_BYTES
 
-    def ingest(name, dev_evals):
-        c = commit_evals(srs.g1_lagrange, mont_to_canonical(dev_evals))
-        commitments[name] = ops.to_affine_host(c)[0]
-        if not lazy:
-            fixed_coeffs[name] = pack_poly(evals_to_coeffs(dev_evals, k))
+        def ingest(name, dev_evals):
+            c = commit_evals(srs.g1_lagrange, mont_to_canonical(dev_evals))
+            commitments[name] = ops.to_affine_host(c)[0]
+            if not lazy:
+                fixed_coeffs[name] = pack_poly(evals_to_coeffs(dev_evals, k))
 
-    for name, v in fixed_host.items():
-        ingest(name, to_device_poly(v, dev))
-    for j, s in enumerate(_sigma_values_dev(layout, dev)):
-        ingest(f"sigma_{j}", s)
-    if lazy:
-        fixed_coeffs = LazyFixedCoeffs(layout, k, dev)
+        with obs.span("keygen.commit"):
+            for name, v in fixed_host.items():
+                ingest(name, to_device_poly(v, dev))
+            for j, s in enumerate(_sigma_values_dev(layout, dev)):
+                ingest(f"sigma_{j}", s)
+            if lazy:
+                fixed_coeffs = LazyFixedCoeffs(layout, k, dev)
 
-    vk = VerifyingKey(
-        k=k, ext_log=ext_log, n_advice=layout.n_advice,
-        n_lookup=layout.n_lookup, lookup_bits=layout.lookup_bits,
-        n_perm=n_perm, n_z=n_z, usable=layout.usable,
-        deltas=layout.deltas,
-        num_instance=len(ctx.instance),
-        commitments=commitments, omega=domain(k).omega,
-    )
-    return ProvingKey(vk=vk, layout=layout, srs=srs, fixed_coeffs=fixed_coeffs)
+        vk = VerifyingKey(
+            k=k, ext_log=ext_log, n_advice=layout.n_advice,
+            n_lookup=layout.n_lookup, lookup_bits=layout.lookup_bits,
+            n_perm=n_perm, n_z=n_z, usable=layout.usable,
+            deltas=layout.deltas,
+            num_instance=len(ctx.instance),
+            commitments=commitments, omega=domain(k).omega,
+        )
+        return ProvingKey(vk=vk, layout=layout, srs=srs,
+                          fixed_coeffs=fixed_coeffs)
 
 
 # ---------------------------------------------------------------------------
@@ -330,6 +339,17 @@ def prove(pk: ProvingKey, instances: list[int], rng=None, mesh=None,
 
 
 def _prove_impl(pk: ProvingKey, instances: list[int], rng) -> bytes:
+    from .poly_device import _mesh_stack
+
+    with obs.span("prove", k=pk.layout.k, n_advice=pk.layout.n_advice,
+                  mesh=bool(_mesh_stack())):
+        return _prove_rounds(pk, instances, rng)
+
+
+def _prove_rounds(pk: ProvingKey, instances: list[int], rng) -> bytes:
+    """The five rounds, each a span; each ends in a device-to-host read
+    (a commitment or an evaluation), so its host time holds its device
+    work."""
     layout = pk.layout
     n, k = layout.n, layout.k
     usable = layout.usable
@@ -344,174 +364,186 @@ def _prove_impl(pk: ProvingKey, instances: list[int], rng) -> bytes:
         tr.absorb_scalar(v)  # binds instances into Fiat-Shamir (not written)
 
     # -- round 1: blind + commit witness columns ----------------------------
-    def _blind_tail(col16):
-        tail = [rng.randrange(P) for _ in range(n - usable)]
-        col16[usable:] = ints_to_limbs_fast(tail).astype(np.uint16)
-        return col16
+    with obs.span("prove.witness"):
+        def _blind_tail(col16):
+            tail = [rng.randrange(P) for _ in range(n - usable)]
+            col16[usable:] = ints_to_limbs_fast(tail).astype(np.uint16)
+            return col16
 
-    def commit(d):
-        return ops.to_affine_host(
-            commit_evals(pk.srs.g1_lagrange, mont_to_canonical(d)))[0]
+        def commit(d):
+            return ops.to_affine_host(
+                commit_evals(pk.srs.g1_lagrange, mont_to_canonical(d)))[0]
 
-    # advice evals are transient: blind, upload, commit, iNTT to packed
-    # coefficients, free
-    coeffs = {}
-    for c in range(layout.n_advice):
-        d = to_device_poly(_blind_tail(layout.advice_col(c)), dev)
-        tr.write_point(commit(d))
-        coeffs[f"advice_{c}"] = pack_poly(evals_to_coeffs(d, k))
-        del d
+        # advice evals are transient: blind, upload, commit, iNTT to packed
+        # coefficients, free
+        coeffs = {}
+        for c in range(layout.n_advice):
+            d = to_device_poly(_blind_tail(layout.advice_col(c)), dev)
+            tr.write_point(commit(d))
+            coeffs[f"advice_{c}"] = pack_poly(evals_to_coeffs(d, k))
+            del d
 
-    if layout.n_lookup:
-        tb = 1 << layout.lookup_bits
-        mult = list(layout.multiplicity)
-        lookup_cols = []
-        for c in range(layout.n_lookup):
-            col = layout.lookup_col(c)
-            tail = [rng.randrange(tb) for _ in range(n - usable)]
-            for v in tail:
-                mult[v] += 1
-            mult[0] -= n - usable  # the zero padding rows the tail replaces
-            col[usable:] = ints_to_limbs_fast(tail).astype(np.uint16)
-            lookup_cols.append(col)
-    else:
-        mult = layout.multiplicity
-        lookup_cols = []
+        if layout.n_lookup:
+            tb = 1 << layout.lookup_bits
+            mult = list(layout.multiplicity)
+            lookup_cols = []
+            for c in range(layout.n_lookup):
+                col = layout.lookup_col(c)
+                tail = [rng.randrange(tb) for _ in range(n - usable)]
+                for v in tail:
+                    mult[v] += 1
+                mult[0] -= n - usable  # the padding rows the tail replaces
+                col[usable:] = ints_to_limbs_fast(tail).astype(np.uint16)
+                lookup_cols.append(col)
+        else:
+            mult = layout.multiplicity
+            lookup_cols = []
 
-    lookup_dev = [to_device_poly(c, dev) for c in lookup_cols]
-    m_dev = to_device_poly(mult, dev)
-    inst_dev = to_device_poly(layout.instance_col, dev)
+        lookup_dev = [to_device_poly(c, dev) for c in lookup_cols]
+        m_dev = to_device_poly(mult, dev)
+        inst_dev = to_device_poly(layout.instance_col, dev)
 
-    for d in lookup_dev:
-        tr.write_point(commit(d))
-    tr.write_point(commit(m_dev))
+        for d in lookup_dev:
+            tr.write_point(commit(d))
+        tr.write_point(commit(m_dev))
 
-    beta_lk = tr.challenge()
-    beta = tr.challenge()
-    gamma = tr.challenge()
+        beta_lk = tr.challenge()
+        beta = tr.challenge()
+        gamma = tr.challenge()
 
     # -- round 2: logUp helper h + chunked grand products --------------------
-    from .device_rounds import compute_h_dev, compute_z_dev
+    with obs.span("prove.grand_product"):
+        from .device_rounds import compute_h_dev, compute_z_dev
 
-    table_ev = _fixed_evals(pk, "table")
-    const_ev = _fixed_evals(pk, "const")
-    if layout.n_lookup:
-        h_dev, h_closure = compute_h_dev(k, lookup_dev, table_ev, m_dev,
-                                         beta_lk)
-    else:
-        h_dev = torch.zeros((n, 16), dtype=torch.int32, device=dev)
-        h_closure = None
-    del table_ev
+        table_ev = _fixed_evals(pk, "table")
+        const_ev = _fixed_evals(pk, "const")
+        if layout.n_lookup:
+            h_dev, h_closure = compute_h_dev(k, lookup_dev, table_ev, m_dev,
+                                             beta_lk)
+        else:
+            h_dev = torch.zeros((n, 16), dtype=torch.int32, device=dev)
+            h_closure = None
+        del table_ev
 
-    def col_loader(j):
-        kind, c = layout.perm_columns[j]
-        if kind == "advice":
-            return coeffs_to_evals(coeffs[f"advice_{c}"], k)
-        if kind == "lookup":
-            return lookup_dev[c]
-        if kind == "const":
-            return const_ev
-        return inst_dev
+        def col_loader(j):
+            kind, c = layout.perm_columns[j]
+            if kind == "advice":
+                return coeffs_to_evals(coeffs[f"advice_{c}"], k)
+            if kind == "lookup":
+                return lookup_dev[c]
+            if kind == "const":
+                return const_ev
+            return inst_dev
 
-    z_devs, z_closure = compute_z_dev(
-        layout, col_loader,
-        lambda j: _fixed_evals(pk, f"sigma_{j}"),
-        beta, gamma)
-    # blind Z: rows (usable, n) are unconstrained
-    z_tail = n - usable - 1
-    if z_tail > 0:
+        z_devs, z_closure = compute_z_dev(
+            layout, col_loader,
+            lambda j: _fixed_evals(pk, f"sigma_{j}"),
+            beta, gamma)
+        # blind Z: rows (usable, n) are unconstrained
+        z_tail = n - usable - 1
+        if z_tail > 0:
+            for c in range(len(z_devs)):
+                rand_rows = torch.from_numpy(ints_to_limbs(
+                    [rng.randrange(P) for _ in range(z_tail)]))
+                with obs.wait():
+                    rand_rows = rand_rows.to(dev)
+                z_devs[c] = torch.cat([z_devs[c][: usable + 1], rand_rows])
+        if h_closure is not None:
+            with obs.wait():
+                assert not bool(h_closure.any()), "logUp multiplicity mismatch"
+        with obs.wait():
+            assert torch.equal(z_closure.cpu(), FR.one_t("cpu")), \
+                "chained permutation product does not close"
+        tr.write_point(commit(h_dev))
         for c in range(len(z_devs)):
-            rand_rows = torch.from_numpy(ints_to_limbs(
-                [rng.randrange(P) for _ in range(z_tail)])).to(dev)
-            z_devs[c] = torch.cat([z_devs[c][: usable + 1], rand_rows])
-    if h_closure is not None:
-        assert not bool(h_closure.any()), "logUp multiplicity mismatch"
-    assert torch.equal(z_closure.cpu(), FR.one_t("cpu")), \
-        "chained permutation product does not close"
-    tr.write_point(commit(h_dev))
-    for c in range(len(z_devs)):
-        tr.write_point(commit(z_devs[c]))
-        coeffs[f"z_{c}"] = pack_poly(evals_to_coeffs(z_devs[c], k))
-        z_devs[c] = None
-    del z_devs, const_ev
+            tr.write_point(commit(z_devs[c]))
+            coeffs[f"z_{c}"] = pack_poly(evals_to_coeffs(z_devs[c], k))
+            z_devs[c] = None
+        del z_devs, const_ev
 
-    y = tr.challenge()
+        y = tr.challenge()
 
-    for i, d in enumerate(lookup_dev):
-        coeffs[f"lookup_{i}"] = pack_poly(evals_to_coeffs(d, k))
-    del lookup_dev
-    coeffs["m"] = pack_poly(evals_to_coeffs(m_dev, k))
-    coeffs["h"] = pack_poly(evals_to_coeffs(h_dev, k))
-    coeffs["instance"] = pack_poly(evals_to_coeffs(inst_dev, k))
-    del m_dev, h_dev, inst_dev
-    # fixed columns join through a chain view: a LazyFixedCoeffs provider
-    # rebuilds each at its point of use instead of holding it
-    coeffs = _ChainCoeffs(coeffs, pk.fixed_coeffs)
+        for i, d in enumerate(lookup_dev):
+            coeffs[f"lookup_{i}"] = pack_poly(evals_to_coeffs(d, k))
+        del lookup_dev
+        coeffs["m"] = pack_poly(evals_to_coeffs(m_dev, k))
+        coeffs["h"] = pack_poly(evals_to_coeffs(h_dev, k))
+        coeffs["instance"] = pack_poly(evals_to_coeffs(inst_dev, k))
+        del m_dev, h_dev, inst_dev
+        # fixed columns join through a chain view: a LazyFixedCoeffs provider
+        # rebuilds each at its point of use instead of holding it
+        coeffs = _ChainCoeffs(coeffs, pk.fixed_coeffs)
 
     # -- round 3: quotient (streamed per extension coset) ---------------------
-    t_chunk_coeffs = _quotient(pk, coeffs, beta_lk, beta, gamma, y)
-    for tc in t_chunk_coeffs:
-        tr.write_point(ops.to_affine_host(commit_coeffs(pk.srs.g1, tc))[0])
+    with obs.span("prove.quotient"):
+        t_chunk_coeffs = _quotient(pk, coeffs, beta_lk, beta, gamma, y)
+        for tc in t_chunk_coeffs:
+            tr.write_point(
+                ops.to_affine_host(commit_coeffs(pk.srs.g1, tc))[0])
 
-    x = tr.challenge()
-    assert pow(x, n, P) != 1, "challenge landed in the domain (negligible)"
+        x = tr.challenge()
+        assert pow(x, n, P) != 1, "challenge landed in the domain (negligible)"
 
     # -- round 4: evaluations (from coefficients) -----------------------------
-    eval_points = _eval_points(x, omega, pk.vk.usable)
-    queries = _query_plan(pk.vk, len(t_chunk_coeffs))
-    xn = pow(x, n, P)
-    coeffs["t"] = pack_poly(rlc_list(
-        t_chunk_coeffs, [pow(xn, i, P) for i in range(len(t_chunk_coeffs))],
-        k))
-    del t_chunk_coeffs
+    with obs.span("prove.evals"):
+        eval_points = _eval_points(x, omega, pk.vk.usable)
+        queries = _query_plan(pk.vk, len(t_chunk_coeffs))
+        xn = pow(x, n, P)
+        coeffs["t"] = pack_poly(rlc_list(
+            t_chunk_coeffs,
+            [pow(xn, i, P) for i in range(len(t_chunk_coeffs))], k))
+        del t_chunk_coeffs
 
-    stacked_names = sorted(coeffs.keys())
-    pts_active = [ptn for ptn in POINT_NAMES
-                  if any(pt == ptn for _, pt in queries)]
-    evals = {}
-    EV_CHUNK = 16
-    for i0 in range(0, len(stacked_names), EV_CHUNK):
-        batch = stacked_names[i0 : i0 + EV_CHUNK]
-        polys = [coeffs[nm] for nm in batch]
-        for pt_name in pts_active:
-            vals = eval_coeffs_list(polys, eval_points[pt_name], k)
-            for nm, v in zip(batch, vals):
-                evals[(nm, pt_name)] = v
-        del polys
+        stacked_names = sorted(coeffs.keys())
+        pts_active = [ptn for ptn in POINT_NAMES
+                      if any(pt == ptn for _, pt in queries)]
+        evals = {}
+        EV_CHUNK = 16
+        for i0 in range(0, len(stacked_names), EV_CHUNK):
+            batch = stacked_names[i0 : i0 + EV_CHUNK]
+            polys = [coeffs[nm] for nm in batch]
+            for pt_name in pts_active:
+                vals = eval_coeffs_list(polys, eval_points[pt_name], k)
+                for nm, v in zip(batch, vals):
+                    evals[(nm, pt_name)] = v
+            del polys
 
-    for nm, pt in sorted(queries):
-        if nm in ("instance", "t"):
-            continue  # verifier-derived evals are never written
-        tr.write_scalar(evals[(nm, pt)])
+        for nm, pt in sorted(queries):
+            if nm in ("instance", "t"):
+                continue  # verifier-derived evals are never written
+            tr.write_scalar(evals[(nm, pt)])
 
-    v_ch = tr.challenge()
-    tr.challenge()  # u: used by the verifier's GWC combination only
+        v_ch = tr.challenge()
+        tr.challenge()  # u: used by the verifier's GWC combination only
 
     # -- round 5: GWC opening witnesses --------------------------------------
-    by_point: dict[str, list[str]] = {}
-    for nm, pt in sorted(queries):
-        by_point.setdefault(pt, []).append(nm)
+    with obs.span("prove.openings"):
+        by_point: dict[str, list[str]] = {}
+        for nm, pt in sorted(queries):
+            by_point.setdefault(pt, []).append(nm)
 
-    for pt_name in POINT_NAMES:
-        names = by_point.get(pt_name, [])
-        if not names:
-            continue
-        coef = 1
-        coefs = []
-        comb_eval = 0
-        for nm in names:
-            coefs.append(coef)
-            comb_eval = (comb_eval + coef * evals[(nm, pt_name)]) % P
-            coef = coef * v_ch % P
-        comb_coeffs = None
-        for i0 in range(0, len(names), EV_CHUNK):
-            part = rlc_list([coeffs[nm] for nm in names[i0 : i0 + EV_CHUNK]],
-                            coefs[i0 : i0 + EV_CHUNK], k)
-            comb_coeffs = (part if comb_coeffs is None
-                           else FR.add(comb_coeffs, part))
-        comb = coeffs_to_evals(comb_coeffs, k)
-        w_dev = opening_witness_evals(comb, comb_eval, eval_points[pt_name], k)
-        tr.write_point(commit(w_dev))
+        for pt_name in POINT_NAMES:
+            names = by_point.get(pt_name, [])
+            if not names:
+                continue
+            coef = 1
+            coefs = []
+            comb_eval = 0
+            for nm in names:
+                coefs.append(coef)
+                comb_eval = (comb_eval + coef * evals[(nm, pt_name)]) % P
+                coef = coef * v_ch % P
+            comb_coeffs = None
+            for i0 in range(0, len(names), EV_CHUNK):
+                part = rlc_list(
+                    [coeffs[nm] for nm in names[i0 : i0 + EV_CHUNK]],
+                    coefs[i0 : i0 + EV_CHUNK], k)
+                comb_coeffs = (part if comb_coeffs is None
+                               else FR.add(comb_coeffs, part))
+            comb = coeffs_to_evals(comb_coeffs, k)
+            w_dev = opening_witness_evals(comb, comb_eval,
+                                          eval_points[pt_name], k)
+            tr.write_point(commit(w_dev))
 
     return tr.proof()
 

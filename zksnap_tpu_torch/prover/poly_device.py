@@ -39,6 +39,7 @@ import numpy as np
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
+from .. import obs
 from ..curves.jacobian import JacPoint
 from ..fields.common import N_LIMBS, ints_to_limbs, ints_to_limbs_fast
 from ..fields.field import bn254_fr
@@ -148,7 +149,8 @@ def to_device_poly(values, device="cuda"):
                 canon[:, limb] = (v >> (16 * limb)) & 0xFFFF
     else:
         canon = ints_to_limbs_fast(values, FR.p)
-    t = torch.from_numpy(canon).to(device)
+    with obs.wait():
+        t = torch.from_numpy(canon).to(device)
     return FR.mul(t, FR.const_t(FR.R, device)[None, :])
 
 
@@ -403,7 +405,9 @@ def rlc(polys, coef_ints: list[int], k: int):
     """sum_i coef_i * polys[i] over a [P, n, 16] stack -> [n, 16]: one
     stacked multiply, then a tree of adds."""
     coefs = torch.from_numpy(ints_to_limbs(
-        [c % FR.p * FR.R % FR.p for c in coef_ints])).to(polys.device)
+        [c % FR.p * FR.R % FR.p for c in coef_ints]))
+    with obs.wait():
+        coefs = coefs.to(polys.device)
     acc = FR.mul(_u32(polys), coefs[:, None, :])
     m = acc.shape[0]
     while m > 1:
