@@ -14,16 +14,22 @@ Phases:
      stack frame and no CALL and no LDL/STL in their SASS; K1's kernels
      required inlined too (no frame, no CALL, no local memory) and the
      ptxas lines of K3's projective kinds and K4-K6 those of
-     K3_K6_PTXAS);
+     K3_K6_PTXAS; the NTT kernels' instantiations with no stack frame and
+     no spills);
   2. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes, edge cases included, bit-exact, and time both.
      K1 and K2 (add, sub) first (check_field_kernels): all four fields at
      ragged n (FIELD_RAGGED_N) with edge values first and last and
-     one-element operands; every stage's strided and broadcast views of
-     the NTT at 2^21 and 2^23 (a leading batch of 4), none copied; one
-     2^21 NTT with no operand copied; three layouts the kernels cannot
-     read in place, each copied once and counted; their times at a middle
-     NTT stage's views and the host split of one call at n = 8192.  Then
+     one-element operands; three stages' strided and broadcast views of
+     the plain NTT at 2^21 and 2^23 (a leading batch of 4), none copied;
+     three layouts the kernels cannot read in place, each copied once and
+     counted; their times at a middle stage's views and the host split of
+     one call at n = 8192.  The NTT kernels (check_ntt_kernel) against
+     their plain version at 2^21, 2^18 and 2^13 through the prover's
+     coset_evals (int16 in, the coset powers folded in), evals_to_coeffs
+     (n^-1 folded in) and coeffs_to_evals, with no K1 or K2 launch, the
+     mesh's local transforms on every card, a misaligned operand refused,
+     and their times against the plain version's.  Then
      the k=13 path's (n = 8192 field elements and points; the fixed-base
      bucket stream of 16 * 8192 pairs), the k=21 path's (field ops over
      2^21 rows; padd over 32768 lanes; a variable-base pass of 2 * 2^21
@@ -148,8 +154,9 @@ operations that its function needs at the H100's INT32 rate and its
 bytes (inputs read once, outputs written once) at 3.35 TB/s; the point
 formulas (K3-K8) count their products on the IMAD pipe and their adds on
 the ALU pipe apart, and take the slowest of the two pipes and the issue.
-The kernels line gives K1-K6 at the k=21 path's shape, with that path's
-launches (K3's among them the SRS's Jacobian dbl and add), K7, K8 at
+The kernels line gives K1-K6 and the NTT (forward 2^21) at the k=21
+path's shape, with that path's launches (K3's among them the SRS's
+Jacobian dbl and add; the NTT's one a pass), K7, K8 at
 n = 2^20 with their own path's (each of their launches is one of K3's
 point kernel, which K3's count takes too), and K9 (variant B),
 K10 (mxu), K11 (u32mul and i8dot) at the experiments' shapes with the
@@ -480,6 +487,10 @@ FIELD_KERNELS = ("mont_mul_kernel", "mont_addsub_kernel")
 # n of K1's and K2's ragged check: one element, less than a warp, each side
 # of the k=13 path's 8192 and one past the k=21 path's 2^21
 FIELD_RAGGED_N = (1, 31, 8191, 8192, (1 << 21) + 1)
+# stages of the plain NTT (`_ntt_plain`, the CPU's path) whose strided and
+# broadcast views K1 and K2 read in place: the first (a one-row twiddle),
+# a middle one and the last of 2^21
+STAGE_VIEWS = (0, 10, 20)
 
 # K3's projective kinds' and K4-K6's ptxas lines, (registers, stack frame
 # bytes), as the builds since K1's redesign gave them: the Jacobian
@@ -536,7 +547,7 @@ def require_field_kernels(report: dict, ptxas: dict):
 
 
 def ntt_stage_operands(x, k: int, s: int, twiddles):
-    """(u, the odd rows, w[None]) of stage s of `_ntt_impl` over x
+    """(u, the odd rows, w[None]) of stage s of `_ntt_plain` over x
     [..., 2^k, 16]: K2's strided `xb[..., 0, :, :]`, K1's strided
     `xb[..., 1, :, :]` and broadcast `w[None]`."""
     n, m = 1 << k, 1 << s
@@ -617,18 +628,17 @@ def copy_counts() -> dict:
 def check_field_kernels(dev, rng, results):
     """K1 and K2 (add and sub) bit-exact against their plain versions:
     every field, edge values first and last, at each n of FIELD_RAGGED_N
-    and with a one-element operand on either side; on every stage's
-    views of the NTT at 2^21 and at 2^23 (a leading batch of 4 x 2^21),
-    none of them copied; one forward 2^21 NTT with no copy; and three
+    and with a one-element operand on either side; on the strided and
+    broadcast views of STAGE_VIEWS' stages of the plain NTT at 2^21 and at
+    2^23 (a leading batch of 4 x 2^21), none of them copied; and three
     layouts the kernels cannot read in place (limbs not adjacent, rows
     not 16-byte aligned, three levels of strides), each copied once and
-    counted.  Then the times at a middle NTT stage's views and the host
-    split of one call at n = 8192."""
+    counted.  Then the times at stage 10's views and the host split of one
+    call at n = 8192."""
     from zksnap_tpu_torch.fields import (bn254_fq, bn254_fr, secp256k1_fp,
                                          secp256k1_fq)
     from zksnap_tpu_torch.fields import pallas_mont as pm
     from zksnap_tpu_torch.poly.domain import domain
-    from zksnap_tpu_torch.poly.ntt import ntt
 
     gen = torch.Generator().manual_seed(rng.randrange(1 << 31))
     errs = {"K1": 0, "K2": 0}
@@ -660,21 +670,13 @@ def check_field_kernels(dev, rng, results):
                              20261022 + len(lead), dev).reshape(
                                  *lead, 1 << k, 16)
         tw = domain(k).twiddles(dev)
-        for s in range(k):
+        for s in STAGE_VIEWS:
             u, xa, wb = ntt_stage_operands(x, k, s, tw)
             t = held(xa, wb, F.p, ("NTT view", tag, s))
             held(u, t, F.p, ("NTT view, K2's", tag, s))
         del x
     require(copy_counts() == copies0, ("field operands copied",
                                        copies0, copy_counts()))
-    x = random_canonical(1 << 21, 20261024, dev)
-    ntt(21).forward(x)
-    torch.cuda.synchronize()
-    require(copy_counts() == copies0, ("an NTT's operands copied",
-                                       copies0, copy_counts()))
-    results["ntt_2p21"] = {"copies": {k: v - copies0[k] for k, v in
-                                      copy_counts().items()},
-                           "ms": cuda_ms(lambda: ntt(21).forward(x), 5)}
 
     a, b = field_inputs(F, 8192, rng, dev)
     flat = torch.zeros(8192 * 16 + 2, dtype=torch.int32, device=dev)
@@ -694,17 +696,17 @@ def check_field_kernels(dev, rng, results):
                  copy_counts()))
     results["field_checks"] = {
         "ragged_n": list(FIELD_RAGGED_N), "ntt_views": ["2^21", "2^23"],
-        "refused_layouts": 3, "max_abs_err": 0}
+        "ntt_view_stages": list(STAGE_VIEWS), "refused_layouts": 3,
+        "max_abs_err": 0}
     log(f"K1, K2 (add, sub) bit-exact: 4 fields at n = {list(FIELD_RAGGED_N)}"
-        " and one-element operands; every stage's views of the NTT at 2^21 "
-        "and 2^23 (4 x 2^21) with no copy; one 2^21 NTT with no copy "
-        f"({results['ntt_2p21']['ms']:.3f} ms); three refused layouts, each "
-        "copied once and counted")
+        f" and one-element operands; stages {list(STAGE_VIEWS)}' views of the"
+        " plain NTT at 2^21 and 2^23 (4 x 2^21) with no copy; three refused "
+        "layouts, each copied once and counted")
 
     x = random_canonical(1 << 21, 20261026, dev)
     u, xa, wb = ntt_stage_operands(x, 21, 10, domain(21).twiddles(dev))
     t = pm.mont_mul(xa, wb, F.p)
-    time_field_kernels(results, "ntt_view_2^21_s10", F, xa, wb, errs,
+    time_field_kernels(results, "stage_view_2^21_s10", F, xa, wb, errs,
                        k2=(u, t))
     a, b = field_inputs(F, 8192, rng, dev)
     results["host_split_ms"] = {
@@ -713,6 +715,137 @@ def check_field_kernels(dev, rng, results):
     log("host ms of one call at n = 8192: " + "; ".join(
         f"{k}: " + ", ".join(f"{p} {v:.4f}" for p, v in r.items())
         for k, r in results["host_split_ms"].items()))
+
+
+# -- the NTT kernels (csrc/ntt.cu) ----------------------------------------------
+
+NTT_KERNEL = "ntt_pass_kernel"
+# the single-card transforms of the main paths: the k=21 voter's domain
+# (and the Paillier voter's 8x extended one), the Paillier voter's 2^18 and
+# the k=13 voter's 2^13; and the local transforms of a mesh of four cards
+# at k=21 and at 2^23: over t2 ([2^19], [2^21]), then [chunk, 4] over the
+# shards
+NTT_MAIN_K = (21, 18, 13)
+NTT_MESH = ((19, ()), (21, ()), (2, (1 << 17,)), (2, (1 << 19,)))
+
+
+def ntt_kernel_report(ptxas: dict) -> dict:
+    """The ptxas lines of the NTT kernels' instantiations."""
+    return {k: v for k, v in ptxas.items() if NTT_KERNEL in k}
+
+
+def require_ntt_kernels(report: dict):
+    """Every NTT kernel built without a stack frame or spills."""
+    require(report and all(
+        v.get("stack_bytes") == 0 and v.get("spill_stores") == 0
+        and v.get("spill_loads") == 0 for v in report.values()),
+        ("NTT kernels with a stack frame or spills", report))
+
+
+def check_ntt_kernel(dev, results):
+    """The NTT kernels (`poly/ntt.py` `ntt_kernel`) bit-exact against their
+    plain version (`_ntt_plain`: the bit-reversal gather and K1/K2 stages
+    on the card) at the main paths' shapes.  At each k of NTT_MAIN_K the
+    prover's own three calls, each one NTT launch a pass and, once the
+    twiddle tables exist, no K1 or K2 launch: coset_evals (int16 at-rest coefficients, the coset's powers as
+    the kernels' `pre`), evals_to_coeffs (the inverse, n^-1 as `post`) and
+    coeffs_to_evals (forward, int32).  NTT_MESH's local transforms both
+    ways on every card of the machine (the kernels' shared-memory opt-in
+    is each card's own).  A contiguous view whose rows are not 16-byte
+    aligned refused with a ValueError.  Then each k's forward transform
+    timed against its plain version, with its device time and its bound."""
+    from zksnap_tpu_torch.fields import bn254_fr
+    from zksnap_tpu_torch.fields.pallas_mont import mont_addsub, mont_mul
+    from zksnap_tpu_torch.poly.domain import domain
+    from zksnap_tpu_torch.poly.ntt import _ntt_plain, ntt_kernel, ntt_plan
+    from zksnap_tpu_torch.prover import poly_device as pd
+
+    F = bn254_fr()
+    cases = []
+
+    def same(got, want, what):
+        require(torch.equal(got, want), ("NTT kernels differ", what))
+        cases.append(what)
+
+    def counts():
+        return mont_mul.launches, mont_addsub.launches, ntt_kernel.launches
+
+    for k in NTT_MAIN_K:
+        n, d = 1 << k, domain(k)
+        x = random_canonical(n, 20261030 + k, dev)
+        s_pows = pd.pow_series_uncached(F.generator, n, dev)
+
+        def calls():
+            return [pd.coset_evals(pd.pack_poly(x), s_pows, k),
+                    pd.evals_to_coeffs(x, k), pd.coeffs_to_evals(x, k)]
+
+        calls()  # the domain's twiddles and the kernels' tables, built once
+        torch.cuda.synchronize()
+        before = counts()
+        got = calls()
+        torch.cuda.synchronize()
+        after = counts()
+        passes = len(ntt_plan(k, 1).widths)
+        require(after[:2] == before[:2]
+                and after[2] - before[2] == 3 * passes,
+                ("the prover's NTT calls launch other kernels", k, before,
+                 after))
+        tw, tw_inv = d.twiddles(dev), d.twiddles_inv(dev)
+        want = [_ntt_plain(F.mul(x, s_pows), tw, k, F),
+                F.mul(_ntt_plain(x, tw_inv, k, F),
+                      F.const_t(d.n_inv, dev)[None, :]),
+                _ntt_plain(x, tw, k, F)]
+        for what, g, w in zip(("coset_evals", "evals_to_coeffs",
+                               "coeffs_to_evals"), got, want):
+            same(g, w, (what, f"2^{k}"))
+        del x, s_pows, got, want
+    for i in range(torch.cuda.device_count()):
+        card = torch.device("cuda", i)
+        for k, lead in NTT_MESH:
+            d = domain(k)
+            x = random_canonical((lead[0] if lead else 1) << k,
+                                 20261050 + k, card).reshape(*lead, 1 << k, 16)
+            for inverse in (False, True):
+                tw = d.twiddles_inv(card) if inverse else d.twiddles(card)
+                same(ntt_kernel(x, tw, k, F), _ntt_plain(x, tw, k, F),
+                     ("mesh", str(card), k, list(lead), inverse))
+            del x
+    flat = torch.zeros((1 << 13) * 16 + 2, dtype=torch.int32, device=dev)
+    try:
+        ntt_kernel(flat[2:].view(1 << 13, 16), domain(13).twiddles(dev), 13,
+                   F)
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused, "an NTT operand not 16-byte aligned was launched")
+
+    for k in NTT_MAIN_K:
+        n = 1 << k
+        x = random_canonical(n, 20261040 + k, dev)
+        tw = domain(k).twiddles(dev)
+        passes = len(ntt_plan(k, 1).widths)
+
+        def fn(x=x, tw=tw, k=k):
+            return ntt_kernel(x, tw, k, F)
+
+        r = shape_result(
+            results, "NTT", f"2^{k}", n=n, passes=passes, max_abs_err=0,
+            ms=cuda_ms(fn, 50 if k <= 13 else 20),
+            plain_ms=cuda_ms(lambda: _ntt_plain(x, tw, k, F), 2),
+            device_ms=kernel_device_ms(fn, NTT_KERNEL, per_call=True),
+            # k n/2 products; the input read and the output written as
+            # ROW a row, each pass boundary 32 bytes a row written and read
+            **bound(k * (n >> 1) * MUL_OPS, n * (2 * ROW + 64 * (passes - 1))))
+        log(f"NTT forward 2^{k} ({passes} passes): kernel {r['ms']:.4f} ms a "
+            f"call ({fmt_ms(r['device_ms'])} on the device), plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4g} ms "
+            f"({r['bound_by']})")
+    results["ntt_checks"] = {"cases": len(cases), "max_abs_err": 0,
+                             "cards": torch.cuda.device_count()}
+    log(f"NTT kernels bit-exact in {len(cases)} cases: coset_evals, "
+        f"evals_to_coeffs and coeffs_to_evals at 2^{list(NTT_MAIN_K)} with "
+        "no K1 or K2 launch; the mesh's local transforms both ways on "
+        f"{torch.cuda.device_count()} card(s); a misaligned operand refused")
 
 
 def check_bucket_scan(results, tag: str, Qa, ids, M: int):
@@ -886,6 +1019,7 @@ def phase2(dev, rng, results):
 
     # K1 / K2: every field, ragged n, NTT views, refused layouts
     check_field_kernels(dev, rng, results)
+    check_ntt_kernel(dev, results)
     F = bn254_fr()
     a, b = field_inputs(F, n, rng, dev)
     time_field_kernels(results, "k13", F, a, b, {"K1": 0, "K2": 0})
@@ -3327,6 +3461,7 @@ def main():
                                                       point_add_staged,
                                                       point_dbl_batch)
     from zksnap_tpu_torch.fields.pallas_mont import mont_addsub, mont_mul
+    from zksnap_tpu_torch.poly.ntt import ntt_kernel
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -3374,6 +3509,10 @@ def main():
             f"{r['stack_bytes']}-byte stack frame, {r['calls']} CALL, "
             f"{r['local']} LDL/STL")
     require_inlined(inline_report)
+    ntt_report = ntt_kernel_report(all_ptxas)
+    for name, r in ntt_report.items():
+        log(f"  NTT {name}: {r}")
+    require_ntt_kernels(ntt_report)
 
     rng = random.Random(20261016)
     results = {}
@@ -3403,8 +3542,8 @@ def main():
     launches_exp = phase_experiments(dev, results, loops, exp_report)
     exp_s = time.time() - t_exp
     log(f"experiments phase: {exp_s:.1f} s")
-    # the kernels line gives K1-K6 at the k=21 path's shape (their
-    # launches are that path's), K7, K8 at n = 2^20 (their launches
+    # the kernels line gives K1-K6 and the NTT at the k=21 path's shape
+    # (their launches are that path's), K7, K8 at n = 2^20 (their launches
     # their own path's, each a launch of K3's point kernel), K9-K11 at
     # the experiments' default shapes (their
     # launches the experiments path's); the largest error is over every
@@ -3414,7 +3553,7 @@ def main():
                       ("K4", "k21"), ("K5", "k21"), ("K6", "k21"),
                       ("K7", "n2^20"), ("K8", "n2^20"), ("K9", "B"),
                       ("K10", "mxu"), ("K11", "u32mul"),
-                      ("K11dot", "i8dot")):
+                      ("K11dot", "i8dot"), ("NTT", "2^21")):
         shapes = results[name + "_shapes"]
         results[name] = dict(shapes[tag], max_abs_err=max(
             r["max_abs_err"] for r in shapes.values()
@@ -3423,7 +3562,8 @@ def main():
     counters = {"K1": (mont_mul,), "K2": (mont_addsub,), "K3": (point,),
                 "K4": (bucket_scan,), "K5": (weighted_suffix,),
                 "K6": (ladder_tree,), "K7": (point_add_staged,),
-                "K8": (point_add_batch, point_dbl_batch)}
+                "K8": (point_add_batch, point_dbl_batch),
+                "NTT": (ntt_kernel,)}
 
     def zero_counts():
         for fns in counters.values():
@@ -3472,7 +3612,7 @@ def main():
         with fused_reduce("1"):
             srs, pk, inst = path(
                 "PLUME voter k=21", lambda: phase_plume(dev, work, k21),
-                k1_k4 + ("K5", "K6"))
+                k1_k4 + ("K5", "K6", "NTT"))
             profile_prove(pk, inst, k21)
             phase_mesh_k21(dev, srs, pk, inst, path, mesh21)
         del pk
@@ -3535,6 +3675,8 @@ def main():
                 "scripts/exp_vpu_rates.py:75"),
         "K11dot": ("dot_chain (i8dot)", "zksnap_tpu_torch/csrc/exp_rates.cu",
                    "scripts/exp_vpu_rates.py:102"),
+        "NTT": ("ntt_pass_kernel", "zksnap_tpu_torch/csrc/ntt.cu",
+                "none: zksnap_tpu/poly/ntt.py is jnp"),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -3557,7 +3699,8 @@ def main():
                    "path_copies": path_copies, "path_seconds": path_seconds,
                    "k1_k2_kernels": field_report,
                    "field_checks": results["field_checks"],
-                   "ntt_2p21": results["ntt_2p21"],
+                   "ntt_checks": results["ntt_checks"],
+                   "ntt_kernels": ntt_report,
                    "field_host_split_ms": results["host_split_ms"],
                    "launches_k7_k8": launches_k7_k8, "ptxas": ptxas,
                    "k4_k5_ptxas": scan_ptxas, "k4_k5_sass": scan_sass,

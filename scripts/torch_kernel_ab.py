@@ -1,10 +1,10 @@
 """Time the port's K1 and K2 (the field kernels), K3 (point formulas),
 K4 (bucket scan), K5 (weighted suffix), K6 (ladder and tree), K7 (the
 staged add), K8 (the batched Jacobian add and dbl), K9 and K10 (the
-16-bit-limb Montgomery products) and K11 (the raw-rate probes) in other
-checkouts and this one on one card, in turns.
+16-bit-limb Montgomery products), K11 (the raw-rate probes) and the
+single-card NTT in other checkouts and this one on one card, in turns.
 
-    python3 scripts/torch_kernel_ab.py OTHER_DIR [OTHER_DIR ...] [--parts k1_k6,k7_k8,k9_k10,k11] [--out chiprun_out/ab.json]
+    python3 scripts/torch_kernel_ab.py OTHER_DIR [OTHER_DIR ...] [--parts k1_k6,k7_k8,k9_k10,k11,ntt] [--out chiprun_out/ab.json]
 
 Each OTHER_DIR holds another checkout's `zksnap_tpu_torch` (for example
 the parent commit: `git archive <commit> zksnap_tpu_torch | tar -x -C
@@ -17,7 +17,8 @@ the same seeded inputs, calls the checkout's own `mont_mul`,
 `ladder_tree` (part k1_k6) and `point_add_batch`, `point_dbl_batch`,
 `point_add_staged` and the SRS's double-and-add (part k7_k8),
 `mul_limb_major` and `mont_mul_mxu` (part k9_k10), `dot_chain` and
-`op_chain` (part k11), and reads CUDA events
+`op_chain` (part k11), `poly/ntt.py` `_ntt_impl` (part ntt), and reads
+CUDA events
 over repeated calls and the profiler's device time of each kernel.
 `--parts` picks the parts (default k1_k6 and k7_k8).  The shapes of
 k1_k6:
@@ -69,6 +70,19 @@ steps.  Each turn reads the dot kernels' ptxas lines and step loops
 `k11_summary` gives each tree's device and call ms range beside the bound
 of each shape.
 
+The shapes of ntt: `_ntt_impl`, forward, one transform of 2^21, 2^18
+and 2^13 (the checkout's own path: before the NTT kernels, PyTorch
+around K1 and K2).  In a checkout with the kernels (`ntt_kernel`) the
+turn also times the plain version (`_ntt_plain`) at those sizes and
+holds the kernels bit-exact against it (`ntt_checks`), forward and
+inverse, with and without the scales (a per-row `pre`, a constant
+`post`), at k = 1-13, 16, 18, 21-24 (NTT_CHECK_K), batches 1, 3 and
+[2, 4] (the larger k with fewer), the mesh's [chunk, n1, 16] at n1 = 2
+and 4, and the int16 at-rest input; `ntt_summary` gives each tree's ms
+a call and device ms beside the IMAD bound (NTT_PRODUCT_SLOTS slots a
+product, k 2^(k-1) products), and the checks want every ntt_pass_kernel
+built without a stack frame or spills.
+
 Each turn also reads the kernels' ptxas lines and SASS mix
 (chip_smoke.py's `ptxas_entries` and `kernel_sass`; cuobjdump is
 required; part k7_k8 adds K3's Jacobian kinds and K7's and K8's own
@@ -113,8 +127,17 @@ JAC_NAMES = ("jac_add_kernel", "jac_dbl_kernel", "staged_add_a_kernel",
 KERNEL_NAMES = SCAN_NAMES + JAC_NAMES + (
     "point_kernel", "ladder_tree_kernel", "mont_mul_kernel",
     "mont_addsub_kernel", "direct_copy") + ("mul16_kernel", "mxu_mul_kernel",
-                                            "dot_chain", "op_chain_kernel")
-PARTS = ("k1_k6", "k7_k8", "k9_k10", "k11")
+                                            "dot_chain", "op_chain_kernel") + (
+    "ntt_pass_kernel", "CatArrayBatchedCopy", "vectorized_gather_kernel",
+    "Memcpy HtoD")
+PARTS = ("k1_k6", "k7_k8", "k9_k10", "k11", "ntt")
+# part ntt: the timed sizes (log2) and calls of each; the sizes held
+# bit-exact to the plain version; the IMAD pipe's slots a Montgomery
+# product and its rate (the kernel table's K1 bound)
+NTT_TIMED = ((21, 10), (18, 20), (13, 50))
+NTT_CHECK_K = tuple(range(1, 14)) + (16, 18, 21, 22, 23, 24)
+NTT_PRODUCT_SLOTS = 264
+IMAD_SLOTS_S = 16.7e12
 # part k11's dot widths: the JAX main's 2^14, the script docstring's 2^18
 # and a ragged 2^14 - 8; its chains' lengths on 16 x 2^14 lanes
 K11_DOT_W = (("2^14", 1 << 14), ("2^18", 1 << 18), ("2^14-8", (1 << 14) - 8))
@@ -149,6 +172,8 @@ def turn(tree: str, k5_out: str, parts) -> dict:
                                                "mont_addsub_kernel")
     if "k7_k8" in parts:
         names += ("point_kernel",) + JAC_NAMES
+    if "ntt" in parts:
+        names += ("ntt_pass_kernel",)
     with open(os.path.join(os.path.dirname(lib),
                            f"build_{kernels.source_hash()}.log")) as f:
         all_ptxas = cs.ptxas_entries(f.read())
@@ -168,6 +193,8 @@ def turn(tree: str, k5_out: str, parts) -> dict:
         out["k11_kernels"] = cs.dot_report(all_ptxas, lib)
         out["k11_chain_loops"] = cs.chain_loops(lib)
         out.update(k11(cs, dev))
+    if "ntt" in parts:
+        out.update(ntt_part(cs, dev))
     return out
 
 
@@ -553,6 +580,118 @@ def k9_k10_summary(record: dict) -> dict:
     return out
 
 
+def _ntt_rows(rng, shape, dev):
+    """Seeded canonical Montgomery rows of `shape` (..., 16): random
+    16-bit limbs under p's top limb, the first rows 0 and p - 1."""
+    import numpy as np
+    import torch
+
+    from zksnap_tpu_torch.fields import bn254_fr, ints_to_limbs
+
+    x = rng.integers(0, 1 << 16, shape, dtype=np.int64)
+    x[..., -1] &= 0x1FFF
+    flat = x.reshape(-1, 16)
+    flat[0] = 0
+    flat[-1] = ints_to_limbs([bn254_fr().p - 1])[0]
+    return torch.from_numpy(x.astype(np.int32)).to(dev)
+
+
+def ntt_checks(dev) -> dict:
+    """The NTT kernels against their plain version on the card, bit for
+    bit: each case forward and inverse, plain, with the scales, and with
+    the int16 at-rest input and the scales."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from zksnap_tpu_torch.fields import bn254_fr
+    from zksnap_tpu_torch.poly.domain import domain
+    from zksnap_tpu_torch.prover.poly_device import pack_poly
+
+    nt = importlib.import_module("zksnap_tpu_torch.poly.ntt")
+    F = bn254_fr()
+    rng = np.random.default_rng(20261017)
+    cases = []
+    for k in NTT_CHECK_K:
+        lead = [()] + ([(3,)] if k <= 21 else []) + ([(2, 4)] if k <= 13
+                                                      else [])
+        cases += [(k, s) for s in lead]
+    cases += [(1, (1 << 18,)), (2, (1 << 17,))]   # the mesh's [chunk, n1]
+    failed, n_cases = [], 0
+    for k, lead in cases:
+        n = 1 << k
+        x = _ntt_rows(rng, (*lead, n, 16), dev)
+        pre = _ntt_rows(rng, (n, 16), dev)
+        d = domain(k)
+        for inverse in (False, True):
+            tw = d.twiddles_inv(dev) if inverse else d.twiddles(dev)
+            post = F.const_t(d.n_inv if inverse else 5, dev)
+            for scaled, packed in ((False, False), (True, False),
+                                   (True, True)):
+                kw = {"pre": pre, "post": post} if scaled else {}
+                got = nt.ntt_kernel(pack_poly(x) if packed else x, tw, k, F,
+                                    **kw)
+                want = nt._ntt_plain(F.mul(x, pre) if scaled else x, tw, k,
+                                     F)
+                if scaled:
+                    want = F.mul(want, post)
+                n_cases += 1
+                if not torch.equal(got, want):
+                    failed.append([k, list(lead), inverse, scaled, packed])
+        del x, pre
+        torch.cuda.empty_cache()
+    return {"cases": n_cases, "failed": failed, "ok": not failed}
+
+
+def ntt_part(cs, dev) -> dict:
+    """Part ntt: the checkout's `_ntt_impl` at NTT_TIMED; with the
+    kernels, the plain version's time and `ntt_checks`."""
+    import importlib
+
+    import numpy as np
+
+    from zksnap_tpu_torch.fields import bn254_fr
+    from zksnap_tpu_torch.poly.domain import domain
+
+    nt = importlib.import_module("zksnap_tpu_torch.poly.ntt")
+    F = bn254_fr()
+    rng = np.random.default_rng(20261018)
+    calls, plain = {}, {}
+    for k, reps in NTT_TIMED:
+        x = _ntt_rows(rng, (1 << k, 16), dev)
+        tw = domain(k).twiddles(dev)
+        calls[f"ntt_2^{k}"] = (
+            lambda x=x, tw=tw, k=k: nt._ntt_impl(x, tw, k, F), reps)
+        if hasattr(nt, "_ntt_plain"):
+            plain[f"ntt_plain_2^{k}"] = (
+                lambda x=x, tw=tw, k=k: nt._ntt_plain(x, tw, k, F), reps)
+    out = {"ntt_sha256": outputs_sha256(calls, list(calls))}
+    out.update(timed_calls(cs, calls))
+    if plain:
+        out.update(timed_calls(cs, plain))
+        out["ntt_checks"] = ntt_checks(dev)
+    return out
+
+
+def ntt_summary(record: dict) -> dict:
+    """Each tree's ms a call and device ms of part ntt at each size, with
+    the IMAD bound."""
+    out = {}
+    for k, _ in NTT_TIMED:
+        key = f"ntt_2^{k}"
+        bound = k * (1 << (k - 1)) * NTT_PRODUCT_SLOTS / IMAD_SLOTS_S * 1e3
+        row = {"bound_ms": bound}
+        for t in record["turns"]:
+            tree = "this" if t["tree"] == ROOT else t["tree"]
+            dev_ms = sum(v[0] for v in t[f"{key}_device_ms"].values())
+            row.setdefault(tree, []).append(
+                {"ms": t[f"{key}_ms"], "device_ms": dev_ms,
+                 "plain_ms": t.get(f"ntt_plain_{key[4:]}_ms")})
+        out[key] = row
+    return out
+
+
 def same_points(a, b) -> bool:
     """Two projective point lists on the card are the same points."""
     import torch
@@ -606,7 +745,8 @@ def main(argv=None):
     same = (("k1_k2", "k3", "k4", "k6") if "k1_k6" in parts else ()) + (
         ("k7_k8", "srs_chunk") if "k7_k8" in parts else ()) + (
         ("k9_k10",) if "k9_k10" in parts else ()) + (
-        ("k11",) if "k11" in parts else ())
+        ("k11",) if "k11" in parts else ()) + (
+        ("ntt",) if "ntt" in parts else ())
     checks = {f"{k}_same_bytes": len({t[f"{k}_sha256"] for t in turns}) == 1
               for k in same}
     if "k1_k6" in parts:
@@ -615,6 +755,15 @@ def main(argv=None):
         checks["k5_same_points"] = all(same_points(k5[0][j], k5[i][j])
                                        for i in range(1, len(order))
                                        for j in (0, 1))
+    if "ntt" in parts:
+        mine = [t for t in turns if "ntt_checks" in t]
+        checks["ntt_bit_exact"] = bool(mine) and all(
+            t["ntt_checks"]["ok"] for t in mine)
+        checks["ntt_no_stack_or_spills"] = bool(mine) and all(
+            v.get("stack_bytes") == 0 and v.get("spill_stores") == 0
+            and v.get("spill_loads") == 0
+            for t in mine for name, v in t["ptxas"].items()
+            if "ntt_pass_kernel" in name)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -623,6 +772,8 @@ def main(argv=None):
         line["k9_k10_summary"] = k9_k10_summary(line)
     if "k11" in parts:
         line["k11_summary"] = k11_summary(line)
+    if "ntt" in parts:
+        line["ntt_summary"] = ntt_summary(line)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(line, f, indent=1)

@@ -23,7 +23,7 @@ import shutil
 import subprocess
 
 CSRC = os.path.join(os.path.dirname(__file__), "csrc")
-SOURCES = ("mont.cu", "point.cu", "bucket_scan.cu", "reduce.cu",
+SOURCES = ("mont.cu", "ntt.cu", "point.cu", "bucket_scan.cu", "reduce.cu",
            "exp_rates.cu", "exp_mul_variants.cu", "exp_mul_mxu.cu")
 HEADERS = ("field.cuh", "field_inline.cuh", "point.cuh", "point_inline.cuh",
            "mont16.cuh")
@@ -40,6 +40,7 @@ _ROWS = [_P] + [_U] * 5  # an operand's rows: base, inner, magic, shift, strides
 _SIGNATURES = {
     "zk_mont_mul": _ROWS * 2 + [_P, _U, _I, _I, _P, _P],
     "zk_mont_addsub": _ROWS * 2 + [_P, _U, _I, _I, _I, _P, _P],
+    "zk_ntt_pass": [_P] * 5 + [ctypes.POINTER(_I), _P, _P],
     "zk_point": [_I] + [_P] * 9 + [_LL, _I, _I, _P, _P],
     "zk_bucket_scan": [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P, _P],
     "zk_weighted_suffix": [_P] * 7 + [_LL, _LL] + [_I] * 5 + [_P, _P],

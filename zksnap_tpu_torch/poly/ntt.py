@@ -1,9 +1,13 @@
 """Number-theoretic transform over BN254 Fr: single device and
 mesh-sharded (PyTorch port of zksnap_tpu/poly/ntt.py).
 
-Single device: iterative radix-2 decimation-in-time, a bit-reversal
-gather, then k stages, each one batched multiply (K1) and one add and
-one subtract (K2) over [..., n/2, 16] limb tensors.
+Single device: `_ntt_impl`.  On a CUDA tensor it launches the NTT
+kernels (csrc/ntt.cu): one launch a pass of `ntt_plan`, each pass whole
+sub-transforms of at most 2^11 elements in shared memory, the four-step
+twiddle between passes.  On a CPU tensor it runs `_ntt_plain`, the
+kernels' plain version: iterative radix-2 decimation-in-time, a
+bit-reversal gather, then k stages, each one batched multiply (K1) and
+one add and one subtract (K2) over [..., n/2, 16] limb tensors.
 
 Mesh: the four-step NTT -- the length-n vector as an n1 x n2 matrix
 sharded by rows over a 1-D `parallel.Mesh`; local NTTs of length n2, a
@@ -13,14 +17,27 @@ package's all_to_all), then NTTs of length n1.
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import obs
+from ..fields.common import N_LIMBS
 from ..fields.field import PrimeField
 from .domain import Domain, domain
+
+
+def _u32(x):
+    """Widen an at-rest (possibly int16) limb tensor to the int32 compute
+    form (the JAX package's uint32 widening)."""
+    if x.dtype == torch.int16:
+        return x.to(torch.int32) & 0xFFFF
+    return x
 
 
 @functools.cache
@@ -33,10 +50,11 @@ def _bitrev_perm(k: int) -> np.ndarray:
     return rev
 
 
-def _ntt_impl(x, twiddles, k: int, F: PrimeField):
-    """x: [..., n, 16] coefficients -> [..., n, 16] evaluations (natural
-    order), one transform for each index of the leading dimensions (the
-    JAX package's vmap, written out as a batch).
+def _ntt_plain(x, twiddles, k: int, F: PrimeField):
+    """The NTT kernels' plain version: x [..., n, 16] int32 coefficients
+    -> [..., n, 16] evaluations (natural order), one transform for each
+    index of the leading dimensions (the JAX package's vmap, written out
+    as a batch), on any device.
 
     twiddles: [n/2, 16] table of omega^i on x's device."""
     n = 1 << k
@@ -58,6 +76,194 @@ def _ntt_impl(x, twiddles, k: int, F: PrimeField):
     return x
 
 
+def _ntt_impl(x, twiddles, k: int, F: PrimeField, pre=None, post=None):
+    """x: [..., n, 16] coefficients, int32 or the int16 at-rest form ->
+    [..., n, 16] int32 evaluations (natural order), one transform for each
+    index of the leading dimensions.  `pre` ([n, 16]) multiplies input row
+    i before the transform, `post` ([16]) every output after it.
+
+    twiddles: [n/2, 16] table of omega^i on x's device.  A CUDA tensor
+    launches the NTT kernels (`ntt_kernel`); a CPU tensor runs the plain
+    version."""
+    if x.is_cuda:
+        return ntt_kernel(x, twiddles, k, F, pre, post)
+    x = _u32(x)
+    if pre is not None:
+        x = F.mul(x, pre)
+    y = _ntt_plain(x, twiddles, k, F)
+    return y if post is None else F.mul(y, post)
+
+
+# ---------------------------------------------------------------------------
+# The NTT kernels (csrc/ntt.cu): the pass plan and the launches
+# ---------------------------------------------------------------------------
+
+TILE_LOG = 11    # a block's elements (C sub-transforms of 2^b, C 2^b), and
+# so a pass's widest sub-transform: 2^11 x 32 B of shared memory
+MIN_BLOCKS = 256  # a pass keeps this many blocks where the batch allows
+MAX_PASSES = 8    # csrc/ntt.cu's NTT_MAX_PASSES
+MAX_THREADS = 256
+
+
+def pass_widths(k: int, max_bits: int = TILE_LOG) -> tuple[int, ...]:
+    """The fewest passes of at most `max_bits` bits that cover k, as even
+    as they come, the wider first (21 -> 11, 10)."""
+    passes = max(1, -(-k // max_bits))
+    q, r = divmod(k, passes)
+    return tuple(q + 1 if i < r else q for i in range(passes))
+
+
+class Plan(NamedTuple):
+    """How the kernels cut a batch of 2^k transforms: pass p transforms
+    digit p (`widths[p]` bits) and holds 2^cols_log[p] sub-transforms a
+    block; `stage_log` is the widest pass (the stage table's root order,
+    log2), `split` the bits of the inter-pass twiddle table w^lo."""
+    k: int
+    batch: int
+    widths: tuple
+    cols_log: tuple
+    stage_log: int
+    split: int
+
+    def blocks(self, p: int) -> int:
+        cols = self.batch << (self.k - self.widths[p])
+        return -(-cols >> self.cols_log[p])
+
+    def threads(self, p: int) -> int:
+        butterflies = (1 << (self.cols_log[p] + self.widths[p])) >> 1
+        return min(MAX_THREADS, max(32, butterflies))
+
+
+def plan_passes(k: int, batch: int, widths) -> Plan:
+    """The plan for `widths` (which sum to k): each pass holds as many
+    sub-transforms a block as fit TILE_LOG, fewer where the pass would
+    have fewer than MIN_BLOCKS blocks."""
+    if sum(widths) != k or not 1 <= len(widths) <= MAX_PASSES:
+        raise ValueError(f"pass widths {widths} for 2^{k}")
+    cols_log = []
+    for b in widths:
+        cols = batch << (k - b)
+        fill = max(1, cols // MIN_BLOCKS).bit_length() - 1
+        cols_log.append(max(0, min(TILE_LOG - b, fill)))
+    return Plan(k, batch, tuple(widths), tuple(cols_log), max(widths),
+                (k + 1) // 2)
+
+
+@functools.lru_cache(maxsize=256)
+def ntt_plan(k: int, batch: int) -> Plan:
+    """The kernels' plan for `batch` transforms of 2^k: from k and the
+    batch alone."""
+    return plan_passes(k, batch, pass_widths(k))
+
+
+def _packed(t):
+    """[r, 16] int32 limbs -> [r, 8] int32 words (limb 2i + 2^16 limb
+    2i+1, the int16 at-rest form's bytes)."""
+    w = t[:, 0::2].to(torch.int64) + (t[:, 1::2].to(torch.int64) << 16)
+    return (w - ((w >> 31) << 32)).to(torch.int32)
+
+
+_TABLES = WeakIdKeyDictionary()  # twiddles -> {(stage_log, split): tables}
+
+
+def _tables(twiddles, plan: Plan, F: PrimeField):
+    """The kernels' twiddle rows from `twiddles` ([n/2, 16] of w^i), packed
+    ([rows, 8] int32), and the first rows of the lo and hi tables: the
+    2^(stage_log-1) stage twiddles of the 2^stage_log-th root (rows
+    i 2^(k - stage_log) of `twiddles`), then, where the plan has more than
+    one pass, w^lo for lo < 2^split and w^(hi 2^split) for
+    hi < 2^(k - split) (past n/2 the negated rows: w^(n/2) = -1).  Built
+    once for each table and plan shape."""
+    per = _TABLES.setdefault(twiddles, {})
+    key = (plan.stage_log, plan.split)
+    if key not in per:
+        k, sl, s = plan.k, plan.stage_log, plan.split
+        parts = [twiddles[:: 1 << (k - sl)]] if sl else []
+        lo_row = sum(len(p) for p in parts)
+        if len(plan.widths) > 1:
+            half = twiddles[:: 1 << s]
+            parts += [twiddles[: 1 << s], half, F.neg(half)]
+        hi_row = lo_row + (1 << s)
+        rows = (torch.cat(parts) if parts
+                else twiddles.new_zeros((1, N_LIMBS)))
+        per[key] = (_packed(rows).contiguous(), lo_row, hi_row)
+    return per[key]
+
+
+@functools.lru_cache(maxsize=256)
+def _pass_params(plan: Plan, in16: bool, lo_row: int, hi_row: int) -> tuple:
+    """Each pass's parameter array for `zk_ntt_pass` (csrc/ntt.cu's order:
+    first, last, in16, batch, k, passes, p, cols_log, stage_log, split,
+    lo_row, hi_row, blocks, threads, then the passes' widths)."""
+    last = len(plan.widths) - 1
+    out = []
+    for p in range(last + 1):
+        params = (ctypes.c_int * (14 + MAX_PASSES))()
+        params[:14] = [int(p == 0), int(p == last), int(in16), plan.batch,
+                       plan.k, last + 1, p, plan.cols_log[p], plan.stage_log,
+                       plan.split, lo_row, hi_row, plan.blocks(p),
+                       plan.threads(p)]
+        params[14:15 + last] = list(plan.widths)
+        out.append(params)
+    return tuple(out)
+
+
+def ntt_kernel(x, twiddles, k: int, F: PrimeField, pre=None, post=None):
+    """`_ntt_impl` on x's card: one launch of csrc/ntt.cu a pass of
+    `ntt_plan(k, batch)`.  x is read in place (int32, or int16 at rest);
+    the result is a fresh contiguous [..., n, 16] int32.
+    `ntt_kernel.launches` counts launches, `.transforms` the transforms;
+    while tracing is on (`obs`) `.launch_ns` adds each call's host time."""
+    from .. import kernels
+
+    t0 = time.perf_counter_ns() if obs.ON else 0
+    n = 1 << k
+    if x.dtype not in (torch.int16, torch.int32) or x.shape[-2:] != (
+            n, N_LIMBS):
+        raise ValueError(f"NTT operand {x.dtype} {tuple(x.shape)}, expected "
+                         f"int16 or int32 [..., {n}, {N_LIMBS}]")
+    lead = x.shape[:-2]
+    batch = x.numel() // (n * N_LIMBS)
+    if batch * n >= 1 << 31:
+        raise ValueError(f"{batch} transforms of 2^{k}: the kernels take "
+                         f"fewer than 2^31 rows")
+    extra = [t for t in (pre, post) if t is not None]
+    on = kernels.on_device(x, twiddles, *extra)
+    kernels.rows(twiddles, max(n // 2, 1))
+    pre_ptr = None if pre is None else kernels.rows(pre, n)
+    post_ptr = None if post is None else kernels.rows(post, 1)
+    x = x.contiguous()
+    if x.data_ptr() % 16:  # the kernels read a row as 16-byte vectors
+        raise ValueError("NTT operand rows must be 16-byte aligned")
+    out = torch.empty((*lead, n, N_LIMBS), dtype=torch.int32,
+                      device=x.device)
+    if batch == 0:
+        return out
+    plan = ntt_plan(k, batch)
+    tab, lo_row, hi_row = _tables(twiddles, plan, F)
+    passes = _pass_params(plan, x.dtype == torch.int16, lo_row, hi_row)
+    lib = kernels.library()
+    mod = kernels.mod_ptr(F.p)
+    src, dst = x.data_ptr(), out.data_ptr()
+    with on as stream:
+        for p, params in enumerate(passes):
+            err = lib.zk_ntt_pass(src if p == 0 else dst, dst, tab.data_ptr(),
+                                  pre_ptr if p == 0 else None,
+                                  post_ptr if p == len(passes) - 1 else None,
+                                  params, mod, stream)
+            kernels.check(err, "zk_ntt_pass")
+            ntt_kernel.launches += 1
+    ntt_kernel.transforms += batch
+    if t0:
+        ntt_kernel.launch_ns += time.perf_counter_ns() - t0
+    return out
+
+
+ntt_kernel.launches = 0
+ntt_kernel.transforms = 0
+obs.register(ntt_kernel, "launches", "transforms", "launch_ns")
+
+
 class NTT:
     """NTT / inverse NTT for one domain size."""
 
@@ -72,8 +278,8 @@ class NTT:
 
     def inverse(self, y):
         """Evaluations -> coefficients."""
-        x = _ntt_impl(y, self.dom.twiddles_inv(y.device), self.k, self.F)
-        return self.F.mul(x, self.F.const_t(self.dom.n_inv, y.device)[None])
+        return _ntt_impl(y, self.dom.twiddles_inv(y.device), self.k, self.F,
+                         post=self.F.const_t(self.dom.n_inv, y.device))
 
 
 @functools.cache

@@ -45,7 +45,7 @@ from ..fields.common import N_LIMBS, ints_to_limbs, ints_to_limbs_fast
 from ..fields.field import bn254_fr
 from ..msm.pippenger import _group_windows, msm_impl
 from ..poly.domain import domain
-from ..poly.ntt import _ntt_impl
+from ..poly.ntt import _ntt_impl, _u32
 
 FR = bn254_fr()
 
@@ -121,14 +121,6 @@ def pack_poly(x):
     if x.dtype == torch.int16:
         return x
     return (x - ((x & 0x8000) << 1)).to(torch.int16)
-
-
-def _u32(x):
-    """Widen an at-rest (possibly int16) limb tensor to the int32 compute
-    form (the JAX package's uint32 widening)."""
-    if x.dtype == torch.int16:
-        return x.to(torch.int32) & 0xFFFF
-    return x
 
 
 def to_device_poly(values, device="cuda"):
@@ -267,12 +259,12 @@ def commit_coeffs(srs_monomial: JacPoint, coeffs) -> JacPoint:
 def evals_to_coeffs(evals, k: int):
     """[n,16] evaluations on H (natural order) -> coefficient form."""
     dom = domain(k)
+    n_inv = FR.const_t(dom.n_inv, evals.device)
     sh = _mesh_for(1 << k)
     if sh is not None:
-        c = _four_step_natural(evals, k, sh, True)
-    else:
-        c = _ntt_impl(_u32(evals), dom.twiddles_inv(evals.device), k, FR)
-    return FR.mul(c, FR.const_t(dom.n_inv, evals.device)[None, :])
+        return FR.mul(_four_step_natural(evals, k, sh, True), n_inv[None, :])
+    return _ntt_impl(evals, dom.twiddles_inv(evals.device), k, FR,
+                     post=n_inv)
 
 
 def coeffs_to_evals(coeffs, k: int):
@@ -280,14 +272,19 @@ def coeffs_to_evals(coeffs, k: int):
     sh = _mesh_for(1 << k)
     if sh is not None:
         return _four_step_natural(coeffs, k, sh, False)
-    return _ntt_impl(_u32(coeffs), domain(k).twiddles(coeffs.device), k, FR)
+    return _ntt_impl(coeffs, domain(k).twiddles(coeffs.device), k, FR)
 
 
 def coset_evals(coeffs, s_pows, k: int):
     """Evaluate a coefficient-form poly on the coset {s * w^i}: scale
     coefficient j by s^j (s_pows, [n,16] Montgomery), then forward NTT
-    (sharded under a mesh, as coeffs_to_evals)."""
-    return coeffs_to_evals(FR.mul(_u32(coeffs), s_pows), k)
+    (sharded under a mesh, as coeffs_to_evals; on one device the scale
+    is the NTT's own first step)."""
+    sh = _mesh_for(1 << k)
+    if sh is not None:
+        return _four_step_natural(FR.mul(_u32(coeffs), s_pows), k, sh, False)
+    return _ntt_impl(coeffs, domain(k).twiddles(coeffs.device), k, FR,
+                     pre=s_pows)
 
 
 # -- coset extended evaluation ----------------------------------------------

@@ -41,7 +41,6 @@ def warm_prove(ctx, k: int, mesh=None, mesh_axis: str = "x",
     under the JAX package's task names."""
     from .. import kernels
     from ..poly.domain import domain
-    from ..poly.ntt import _bitrev_perm
     from . import plonk
     from . import poly_device as pd
     from .device_rounds import _omega_pows_dev, compute_h_dev, compute_z_dev
@@ -112,7 +111,6 @@ def warm_prove(ctx, k: int, mesh=None, mesh_axis: str = "x",
         dom = domain(k)
         dom.twiddles(dev)
         dom.twiddles_inv(dev)
-        _bitrev_perm(k)
         x = dummy()
         pd.evals_to_coeffs(x, k)
         pd.coeffs_to_evals(x, k)
