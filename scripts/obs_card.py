@@ -176,7 +176,7 @@ def traced_proof(setup, obs, seed: int) -> dict:
     root = [s for s in spans if s.name == "prove"][-1]
     rounds = {s.name: {"s": s.seconds,
                        "counters": {k: v for k, v in s.counters.items() if v}}
-              for s in spans if s.request == root.id}
+              for s in spans if s is root or s.parent == root.id}
     wait_s = root.counters["wait_ns"] / 1e9
     block = blocking_calls(prof, waits, t0, t1)
     block["outside_share_of_wait"] = (block["outside_s"] / wait_s

@@ -89,10 +89,16 @@ def test_prove_span_holds_five_rounds_in_order(traced):
     root = _one(spans, "prove")
     assert root.parent is None and root.request == root.id
     assert root.attrs == {"k": 7, "n_advice": 1, "mesh": False}
-    rounds = sorted((s for s in spans if s.request == root.id
-                     and s is not root), key=lambda s: s.start_ns)
+    rounds = sorted((s for s in spans if s.parent == root.id),
+                    key=lambda s: s.start_ns)
     assert [s.name for s in rounds] == ROUNDS
-    assert all(s.parent == root.id and not s.failed for s in rounds)
+    assert all(s.request == root.id and not s.failed for s in rounds)
+    # below the rounds: the fixed-base commits, each inside its round
+    ids = {s.id for s in rounds}
+    inner = [s for s in spans if s.request == root.id
+             and s is not root and s.id not in ids]
+    assert inner and all(s.name == "commit.fixed" and s.parent in ids
+                         for s in inner)
     assert root.start_ns <= rounds[0].start_ns
     assert rounds[-1].end_ns <= root.end_ns
     for a, b in zip(rounds, rounds[1:]):

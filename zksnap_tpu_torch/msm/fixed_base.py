@@ -8,12 +8,15 @@ For a fixed point set (an SRS basis) precompute once, per window width c,
 so a commit needs no doubling ladder and all windows share one signed
 bucket space of B = 2^(c-1) buckets: one segmented bucket accumulation
 (kernel K4) over the W*n (point, digit) pairs and one weighted reduction.
+While tracing is on (`obs`) each commit is a `commit.fixed` span, and
+`commit_fixed.pairs` counts the pairs accumulated, W*n a commit.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import obs
 from ..curves.jacobian import CurveOps, JacPoint
 from .pippenger import _segmented_bucket_sums, _weighted_bucket_reduce, signed_digits
 
@@ -69,6 +72,14 @@ def build_table(pts: JacPoint, n: int, c: int) -> FixedBaseTable:
 PAIR_GROUP = 1 << 22
 
 
+def window_group(n: int, n_windows: int) -> int:
+    """Windows a bucket accumulation takes: all of them while the W*n
+    pairs fit in PAIR_GROUP, else as many as fit (at least one)."""
+    if n_windows * n <= PAIR_GROUP:
+        return n_windows
+    return max(1, PAIR_GROUP // n)
+
+
 def msm_fixed_impl(ops: CurveOps, table: FixedBaseTable, scalars):
     """MSM over a precomputed table -> JacPoint (projective coordinates).
 
@@ -82,19 +93,13 @@ def msm_fixed_impl(ops: CurveOps, table: FixedBaseTable, scalars):
     neg = (digits < 0).reshape(-1)
     py = torch.where(neg[:, None], ops.F.neg(table.y), table.y)
 
-    if W * n <= PAIR_GROUP:
-        buckets = _segmented_bucket_sums(
-            ops, JacPoint(table.x, py, table.z), ids, B)
-    else:
-        wg = max(1, PAIR_GROUP // n)
-        buckets = None
-        for w0 in range(0, W, wg):
-            w1 = min(w0 + wg, W)
-            sl = slice(w0 * n, w1 * n)
-            part = _segmented_bucket_sums(
-                ops, JacPoint(table.x[sl], py[sl], table.z[sl]),
-                ids[sl], B)
-            buckets = part if buckets is None else ops.add(buckets, part)
+    wg = window_group(n, W)
+    buckets = None
+    for w0 in range(0, W, wg):
+        sl = slice(w0 * n, min(w0 + wg, W) * n)
+        part = _segmented_bucket_sums(
+            ops, JacPoint(table.x[sl], py[sl], table.z[sl]), ids[sl], B)
+        buckets = part if buckets is None else ops.add(buckets, part)
 
     b3 = JacPoint(buckets.x[None], buckets.y[None], buckets.z[None])
     w = _weighted_bucket_reduce(ops, b3, c - 1, plus_one=True)  # [1, 16]
@@ -108,6 +113,14 @@ def commit_fixed(table: FixedBaseTable, scalars) -> JacPoint:
 
     ops = bn254_proj_ops()
     Fq = ops.F
-    r = msm_fixed_impl(ops, table, scalars)
-    return JacPoint(Fq.mul(r.x, r.z), Fq.mul(r.y, Fq.square(r.z)), r.z)
+    n, W = table.n, table.n_windows
+    with obs.span("commit.fixed", n=n, c=table.c, windows=W,
+                  groups=-(-W // window_group(n, W))):
+        r = msm_fixed_impl(ops, table, scalars)
+        out = JacPoint(Fq.mul(r.x, r.z), Fq.mul(r.y, Fq.square(r.z)), r.z)
+        commit_fixed.pairs += W * n
+    return out
 
+
+commit_fixed.pairs = 0
+obs.register(commit_fixed, "pairs")
